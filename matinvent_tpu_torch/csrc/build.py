@@ -1,0 +1,95 @@
+"""Build the package's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
+into ``matinvent_tpu_torch/_build/lib<name>-<hash>.so``, where the hash
+covers the source and the flags, so an edited source is rebuilt. PyTorch's
+headers are not included and ``torch.utils.cpp_extension`` is not used: the
+build takes seconds. A missing ``nvcc`` or a failed build raises with the
+compiler's output; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent
+BUILD_DIR = CSRC.parent / "_build"
+NVCC_FLAGS = (
+    "-O3",
+    "-std=c++17",
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-Xptxas", "-v",
+    "-shared",
+    "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_loaded: dict[str, "Built"] = {}
+
+
+class Built:
+    """A loaded library and the ``-Xptxas -v`` report of its build."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, log: str, seconds: float):
+        self.lib = lib
+        self.path = path
+        self.log = log
+        self.seconds = seconds  # 0.0 when the library was already built
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+            "of matinvent_tpu_torch are built from source on first use"
+        )
+    return nvcc
+
+
+def build(name: str) -> Built:
+    """Compile (once) and load ``csrc/<name>.cu``."""
+    with _lock:
+        if name in _loaded:
+            return _loaded[name]
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
+        log_path = lib_path.with_suffix(".log")
+        seconds = 0.0
+        if not lib_path.exists():
+            nvcc = find_nvcc()
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+                capture_output=True,
+                text=True,
+            )
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc failed to build {src} (exit {proc.returncode}):\n{log}"
+                )
+            log_path.write_text(log)
+            # atomic: a concurrent build of the same source sees a whole file
+            os.replace(tmp, lib_path)
+        log = log_path.read_text() if log_path.exists() else ""
+        built = Built(ctypes.CDLL(str(lib_path)), lib_path, log, seconds)
+        _loaded[name] = built
+        return built

@@ -1,0 +1,428 @@
+"""MatterGen-class joint diffusion, sampling half
+(``matinvent_tpu/models/mattergen/diffusion.py``).
+
+``sample`` and ``sample_bucketed`` run the predictor-corrector ancestral
+sampler over the descending grid ``linspace(1, 1/N, N)``: a Langevin
+corrector on the coords, then a VP ancestral step on the cell, a VE step on
+the wrapped coords and a D3PM ancestral draw of the types. The JAX
+``lax.scan`` is a Python loop here, and ``jax.random.categorical`` is
+``argmax(logits + gumbel)``.
+
+Every random draw comes from a ``NoiseSource``: by default
+``GeneratorNoise`` over an explicit ``torch.Generator``; a test can hand
+``ArrayNoise`` the exact draws of another implementation instead.
+
+On the card the sampling net sends each layer's fc edge branch through the
+hand-written kernel (``ops.fused_edge``) unless ``fused_edge=False`` is
+passed. This differs from the JAX package, whose config key
+``fused_edge_sampling`` defaults to false; the port has no such key (the
+config reader drops it).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Mapping, NamedTuple, Sequence
+
+import torch
+from torch import nn
+
+from matinvent_tpu_torch.device import resolve_device
+from matinvent_tpu_torch.models.batch import CrystalBatch
+from matinvent_tpu_torch.models.diffcsp import sinusoidal_time_embedding
+from matinvent_tpu_torch.models.mattergen.corruption import (
+    LatticeVPSDE,
+    TypeD3PM,
+    WrappedCoordVE,
+)
+from matinvent_tpu_torch.models.mattergen.score_net import MatterGenScoreNet
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class MGNoised(NamedTuple):
+    t: torch.Tensor  # [B] continuous time in (0, 1]
+    time_emb: torch.Tensor  # [B, time_dim]
+    atom_types_t: torch.Tensor  # [B, A] int (D3PM state)
+    frac_coords_t: torch.Tensor  # [B, A, 3]
+    lattice_t: torch.Tensor  # [B, 3, 3]
+
+
+@dataclass(frozen=True)
+class MatterGenConfig:
+    """The JAX package's ``MatterGenConfig`` fields and defaults."""
+
+    hidden_dim: int = 256
+    num_layers: int = 6
+    time_dim: int = 256
+    num_freqs: int = 10
+    timesteps: int = 1000
+    max_atomic_num: int = 100
+    d3pm_kind: str = "uniform"
+    d3pm_hybrid_lambda: float = 0.01
+    beta_min: float = 0.1
+    beta_max: float = 20.0
+    sigma_min: float = 0.005
+    sigma_max: float = 0.5
+    weight_cell: float = 1.0
+    weight_pos: float = 0.1
+    weight_types: float = 1.0
+    n_corrector: int = 1
+    corrector_snr: float = 0.2
+    condition_fields: tuple = ()
+    # ((field, mean, std), ...): conditions are standardized before embedding
+    condition_stats: tuple = ()
+    sample_clip: float | None = None
+    # compute dtype of the score-net evals inside the sampling loop
+    sample_dtype: str = "float32"
+    # D3PM type-sampling temperature (1.0 = the exact posterior)
+    type_temperature: float = 1.0
+    edge_style: str = "fc"
+    cutoff: float = 6.0
+    max_neighbors: int = 20
+
+    @classmethod
+    def from_dict(cls, values: Mapping[str, Any]) -> "MatterGenConfig":
+        """Config from a flat mapping; unknown keys are dropped, lists become
+        tuples (as a YAML round trip gives them back)."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in values.items() if k in names}
+        for k in ("condition_fields", "condition_stats"):
+            if isinstance(kw.get(k), list):
+                kw[k] = tuple(tuple(e) if isinstance(e, list) else e for e in kw[k])
+        return cls(**kw)
+
+
+class StepDraws(NamedTuple):
+    cell: torch.Tensor  # [B, 3, 3] standard normal (predictor, cell)
+    pos: torch.Tensor  # [B, A, 3] standard normal (predictor, coords)
+    gumbel: torch.Tensor  # [B, A, V] standard Gumbel (type draw)
+    corr: torch.Tensor  # [n_corrector, B, A, 3] standard normal (corrector)
+
+
+class NoiseSource:
+    """Where the sampler's random draws come from."""
+
+    def prior(self, B: int, A: int, vocab: int, device: torch.device):
+        """(standard normal ``[B,3,3]``, uniform ``[B,A,3]``, integer
+        ``[B,A]`` in ``[0, vocab)``) for the prior state."""
+        raise NotImplementedError
+
+    def step(
+        self, i: int, B: int, A: int, vocab: int, n_corrector: int,
+        device: torch.device,
+    ) -> StepDraws:
+        raise NotImplementedError
+
+
+class GeneratorNoise(NoiseSource):
+    """Draws from an explicit ``torch.Generator`` (on the sampling device)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def prior(self, B, A, vocab, device):
+        g = self.generator
+        return (
+            torch.randn((B, 3, 3), generator=g, device=device),
+            torch.rand((B, A, 3), generator=g, device=device),
+            torch.randint(0, vocab, (B, A), generator=g, device=device),
+        )
+
+    def step(self, i, B, A, vocab, n_corrector, device):
+        g = self.generator
+        cell = torch.randn((B, 3, 3), generator=g, device=device)
+        pos = torch.randn((B, A, 3), generator=g, device=device)
+        u = torch.rand((B, A, vocab), generator=g, device=device)
+        tiny = torch.finfo(torch.float32).tiny
+        gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+        corr = torch.randn((n_corrector, B, A, 3), generator=g, device=device)
+        return StepDraws(cell, pos, gumbel, corr)
+
+
+class ArrayNoise(NoiseSource):
+    """Fixed draws: ``prior = (z_cell, u_pos, types)`` and per-step arrays
+    ``cell [N,B,3,3]``, ``pos [N,B,A,3]``, ``gumbel [N,B,A,V]``,
+    ``corr [N,n_corrector,B,A,3]`` (numpy or torch)."""
+
+    def __init__(self, prior, cell, pos, gumbel, corr):
+        self._prior = prior
+        self._steps = (cell, pos, gumbel, corr)
+
+    def prior(self, B, A, vocab, device):
+        z, u, types = self._prior
+        return (
+            torch.as_tensor(z, dtype=torch.float32, device=device),
+            torch.as_tensor(u, dtype=torch.float32, device=device),
+            torch.as_tensor(types, dtype=torch.long, device=device),
+        )
+
+    def step(self, i, B, A, vocab, n_corrector, device):
+        return StepDraws(
+            *(torch.as_tensor(a[i], dtype=torch.float32, device=device) for a in self._steps)
+        )
+
+
+class MatterGenDiffusion(nn.Module):
+    """The score net (``self.decoder``) and the sampler around it.
+
+    The module's parameter names are the checkpoints' ``state_dict.npz``
+    keys, so ``load_state_dict(npz, strict=True)`` loads one.
+    """
+
+    def __init__(
+        self, config: MatterGenConfig | None = None,
+        device: str | torch.device | None = None,
+    ):
+        super().__init__()
+        self.config = c = config or MatterGenConfig()
+        self.device = resolve_device(device)
+        if c.sample_dtype not in _DTYPES:
+            raise ValueError(f"sample_dtype must be one of {list(_DTYPES)}")
+        self.cell_sde = LatticeVPSDE(beta_min=c.beta_min, beta_max=c.beta_max)
+        self.coord_ve = WrappedCoordVE(sigma_min=c.sigma_min, sigma_max=c.sigma_max)
+        self.d3pm = TypeD3PM.create(
+            num_classes=c.max_atomic_num, num_steps=c.timesteps, kind=c.d3pm_kind,
+            device=self.device,
+        )
+        self.decoder = MatterGenScoreNet(
+            hidden_dim=c.hidden_dim,
+            time_dim=c.time_dim,
+            num_layers=c.num_layers,
+            type_vocab=self.d3pm.vocab,
+            num_freqs=c.num_freqs,
+            condition_fields=tuple(c.condition_fields),
+            edge_style=c.edge_style,
+        ).to(self.device)
+
+    def apply_net(
+        self, noised: MGNoised, num_atoms, mask, conditions=None, cond_mask=None,
+        *, fused_edge: bool = False, dtype: torch.dtype = torch.float32,
+    ) -> dict[str, torch.Tensor]:
+        if conditions and self.config.condition_stats:
+            stats = {f: (m, s) for f, m, s in self.config.condition_stats}
+            conditions = {
+                f: (v - stats[f][0]) / max(stats[f][1], 1e-8) if f in stats else v
+                for f, v in conditions.items()
+            }
+        return self.decoder(
+            noised.time_emb, noised.atom_types_t, noised.frac_coords_t,
+            noised.lattice_t, num_atoms, mask, conditions=conditions,
+            cond_mask=cond_mask, fused_edge=fused_edge, dtype=dtype,
+        )
+
+    # --------------------------------------------------------------- sampling
+    def time_grid(self) -> torch.Tensor:
+        """Descending grid ``linspace(1, 1/N, N)`` in f32."""
+        N = self.config.timesteps
+        return torch.linspace(1.0, 1.0 / N, N, dtype=torch.float32, device=self.device)
+
+    def _guided_preds(
+        self, noised, num_atoms, mask, conditions, guidance, *, fused_edge, dtype
+    ):
+        """Classifier-free guidance: ``(1+g) cond - g uncond`` per field."""
+        kw = dict(fused_edge=fused_edge, dtype=dtype)
+        if not conditions or guidance == 0.0:
+            return self.apply_net(noised, num_atoms, mask, conditions, **kw)
+        cond_preds = self.apply_net(noised, num_atoms, mask, conditions, **kw)
+        B = num_atoms.shape[0]
+        null_mask = {
+            f: torch.zeros((B,), dtype=torch.bool, device=num_atoms.device)
+            for f in conditions
+        }
+        uncond_preds = self.apply_net(
+            noised, num_atoms, mask, conditions, cond_mask=null_mask, **kw
+        )
+        return {
+            k: (1.0 + guidance) * cond_preds[k] - guidance * uncond_preds[k]
+            for k in cond_preds
+        }
+
+    def _sample_init(self, noise: NoiseSource, num_atoms: torch.Tensor, A: int):
+        """Prior draw for one (sub-)batch: state, mask, sigma_lim."""
+        B = num_atoms.shape[0]
+        mask = torch.arange(A, device=num_atoms.device)[None, :] < num_atoms[:, None]
+        z_cell, u_pos, type_draw = noise.prior(B, A, self.d3pm.vocab, num_atoms.device)
+        sigma_lim = self.cell_sde.limit_std(num_atoms)[:, None, None]
+        cell = self.cell_sde.prior_sample(z_cell, num_atoms)
+        pos = self.coord_ve.prior_sample(u_pos)
+        types = self.d3pm.prior_sample(type_draw)
+        return (cell, pos, types), mask, sigma_lim
+
+    def _step_tables(self) -> dict[str, torch.Tensor]:
+        """Per-step scalar and embedding tables of the (static) time grid."""
+        c = self.config
+        N = c.timesteps
+        grid = self.time_grid()  # [N] descending
+        t_prev = torch.clamp(grid - 1.0 / N, min=0.0)
+        last = torch.arange(N, device=grid.device) == (N - 1)
+        zero = torch.zeros((), device=grid.device)
+        nz = torch.where(last, zero, torch.ones((), device=grid.device))
+        time_emb = sinusoidal_time_embedding(grid * N, c.time_dim)  # [N, D]
+        sigma_now = self.coord_ve.sigma(grid)
+        sigma_prev = torch.where(last, zero, self.coord_ve.sigma(t_prev))
+        abar_now = torch.exp(-self.cell_sde._B(grid))
+        abar_prev = torch.exp(-self.cell_sde._B(t_prev))
+        alpha_i = abar_now / abar_prev
+        beta_i = 1.0 - alpha_i
+        post_std = torch.sqrt(
+            torch.clamp(
+                beta_i * (1.0 - abar_prev) / torch.clamp(1.0 - abar_now, min=1e-12),
+                min=0.0,
+            )
+        )
+        p_step = sigma_now**2 - sigma_prev**2
+        p_std = torch.sqrt(
+            torch.clamp(sigma_prev**2 * p_step, min=0.0)
+            / torch.clamp(sigma_now**2, min=1e-12)
+        )
+        corr_step = (c.corrector_snr * sigma_now) ** 2 * 2.0
+        return dict(
+            t=grid, nz=nz, time_emb=time_emb,
+            inv_sigma=1.0 / torch.clamp(sigma_now, min=1e-8),
+            eps_coef=beta_i / torch.sqrt(1.0 - abar_now),
+            inv_sqrt_alpha=1.0 / torch.sqrt(alpha_i),
+            post_std=post_std, p_step=p_step, p_std=p_std,
+            corr_step=corr_step, corr_noise=torch.sqrt(2.0 * corr_step),
+        )
+
+    def _sample_step(
+        self, carry, i: int, *, num_atoms, mask, sigma_lim, noise: NoiseSource,
+        conditions, guidance, tables, fused_edge: bool,
+    ):
+        """One predictor-corrector update of one (sub-)batch at grid step i."""
+        c = self.config
+        N = c.timesteps
+        B, A = mask.shape
+        dtype = _DTYPES[c.sample_dtype]
+        tb = {k: v[i] for k, v in tables.items()}
+        t_vec = tb["t"].expand(B)
+        time_emb = tb["time_emb"][None, :].expand(B, c.time_dim)
+
+        def net_preds(cell_t, pos_t, types_t):
+            noised = MGNoised(t_vec, time_emb, types_t, pos_t, cell_t)
+            return self._guided_preds(
+                noised, num_atoms, mask, conditions, guidance,
+                fused_edge=fused_edge, dtype=dtype,
+            )
+
+        cell_t, pos_t, types_t = carry
+        draws = noise.step(i, B, A, self.d3pm.vocab, c.n_corrector, mask.device)
+        nz = tb["nz"]
+
+        # corrector: Langevin on coords (snr-scaled)
+        for ci in range(c.n_corrector):
+            preds = net_preds(cell_t, pos_t, types_t)
+            score = preds["pos"] * tb["inv_sigma"]
+            mu = pos_t - tb["corr_step"] * score
+            pos_t = mu + tb["corr_noise"] * (nz * draws.corr[ci])
+
+        # predictor
+        preds = net_preds(cell_t, pos_t, types_t)
+
+        # cell: VP ancestral step in sigma_lim-normalized space
+        cell_n = cell_t / sigma_lim
+        mean_n = (cell_n - tb["eps_coef"] * preds["cell"]) * tb["inv_sqrt_alpha"]
+        cell_next = sigma_lim * (mean_n + nz * tb["post_std"] * draws.cell)
+        if c.sample_clip is not None:
+            cell_next = torch.clamp(cell_next, -c.sample_clip, c.sample_clip)
+
+        # coords: VE ancestral (sigma^2 difference) with sigma-scaled score
+        score = preds["pos"] * tb["inv_sigma"]
+        pos_next = (pos_t - tb["p_step"] * score + nz * tb["p_std"] * draws.pos) % 1.0
+
+        # types: D3PM ancestral draw from the tempered posterior; the last
+        # grid step takes its mode
+        post_logits = self.d3pm.posterior_logits(
+            types_t, preds["atomic_numbers"], t_vec
+        ) / c.type_temperature
+        if i == N - 1:
+            types_next = torch.argmax(post_logits, dim=-1)
+        else:
+            types_next = torch.argmax(post_logits + draws.gumbel, dim=-1)
+        return cell_next, pos_next, types_next
+
+    def _finalize(self, state, mask, num_atoms) -> CrystalBatch:
+        cell, pos, types = state
+        # D3PM classes are 0-based; MASK (absorbing) maps to 0 = invalid
+        atom_types = torch.where(types < self.d3pm.num_classes, types + 1, 0)
+        atom_types = torch.where(mask, atom_types, 0).to(torch.int32)
+        return CrystalBatch(
+            atom_types=atom_types, frac_coords=pos % 1.0, lattice=cell,
+            num_atoms=num_atoms,
+        )
+
+    @torch.no_grad()
+    def sample(
+        self,
+        noise: NoiseSource | torch.Generator,
+        num_atoms: torch.Tensor,
+        max_atoms: int | None = None,
+        conditions: Mapping[str, torch.Tensor] | None = None,
+        guidance: float = 0.0,
+        *,
+        fused_edge: bool = True,
+    ) -> CrystalBatch:
+        """Predictor-corrector ancestral sampling of one padded batch."""
+        noise = _as_noise(noise)
+        A = int(max_atoms) if max_atoms is not None else 20
+        num_atoms = torch.clamp(num_atoms.to(self.device), max=A)
+        state, mask, sigma_lim = self._sample_init(noise, num_atoms, A)
+        tables = self._step_tables()
+        for i in range(self.config.timesteps):
+            state = self._sample_step(
+                state, i, num_atoms=num_atoms, mask=mask, sigma_lim=sigma_lim,
+                noise=noise, conditions=conditions, guidance=guidance,
+                tables=tables, fused_edge=fused_edge,
+            )
+        return self._finalize(state, mask, num_atoms)
+
+    @torch.no_grad()
+    def sample_bucketed(
+        self,
+        noise: NoiseSource | torch.Generator | Sequence[NoiseSource],
+        num_atoms_buckets: Sequence[torch.Tensor],
+        bucket_max_atoms: Sequence[int],
+        conditions_buckets: Sequence | None = None,
+        guidance: float = 0.0,
+        *,
+        fused_edge: bool = True,
+    ) -> list[CrystalBatch]:
+        """Size-bucketed sampling: every bucket, padded to its own atom cap,
+        advances one grid step per loop iteration. Returns one
+        ``CrystalBatch`` per bucket. ``noise`` is one source shared by the
+        buckets or a sequence with one per bucket."""
+        n_b = len(num_atoms_buckets)
+        if isinstance(noise, (list, tuple)):
+            noises = [_as_noise(n) for n in noise]
+        else:
+            noises = [_as_noise(noise)] * n_b
+        num_atoms_buckets = [
+            torch.clamp(na.to(self.device), max=int(cap))
+            for na, cap in zip(num_atoms_buckets, bucket_max_atoms)
+        ]
+        conds = conditions_buckets or (None,) * n_b
+        inits = [
+            self._sample_init(noises[bi], num_atoms_buckets[bi], int(bucket_max_atoms[bi]))
+            for bi in range(n_b)
+        ]
+        states = [it[0] for it in inits]
+        tables = self._step_tables()
+        for i in range(self.config.timesteps):
+            states = [
+                self._sample_step(
+                    states[bi], i, num_atoms=num_atoms_buckets[bi],
+                    mask=inits[bi][1], sigma_lim=inits[bi][2], noise=noises[bi],
+                    conditions=conds[bi], guidance=guidance, tables=tables,
+                    fused_edge=fused_edge,
+                )
+                for bi in range(n_b)
+            ]
+        return [
+            self._finalize(states[bi], inits[bi][1], num_atoms_buckets[bi])
+            for bi in range(n_b)
+        ]
+
+
+def _as_noise(noise: NoiseSource | torch.Generator) -> NoiseSource:
+    return GeneratorNoise(noise) if isinstance(noise, torch.Generator) else noise

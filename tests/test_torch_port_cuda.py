@@ -1,0 +1,126 @@
+"""Card-only tests of the port's CUDA kernel (marker ``cuda``).
+
+They skip without a CUDA card. On the card machine, which has no JAX, run
+them without the repository's conftest (it imports JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+
+This file imports torch, numpy and the port only.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from matinvent_tpu_torch.models.mattergen.diffusion import (
+    MatterGenConfig,
+    MatterGenDiffusion,
+    MGNoised,
+)
+from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain, fused_edge_chain_plain
+
+pytestmark = pytest.mark.cuda
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _inputs(B, A, H, nf, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    na = rng.integers(1, A + 1, (B,))
+    mask = np.arange(A)[None, :] < na[:, None]
+
+    def t(x, dt=torch.float32):
+        return torch.tensor(np.asarray(x), dtype=dt, device="cuda")
+
+    args = (
+        t(rng.normal(size=(B, A, H)), dtype), t(rng.normal(size=(B, A, H)), dtype),
+        t(rng.uniform(size=(B, A, 3))),
+        t((mask / na[:, None])[..., None]), t(mask[..., None]),
+        t(rng.normal(size=(6 * nf, H)) * 0.1, dtype),
+        t(rng.normal(size=(H, H)) * 0.1, dtype), t(rng.normal(size=(H,)) * 0.1, dtype),
+    )
+    return args, torch.tensor(mask, device="cuda")
+
+
+# (B, A, H, nf): narrow test widths, a single atom, the 64-atom limit and the
+# sampler's bucket caps at H=256 (A=20 and 12 leave a short last row block)
+SHAPES = [(5, 4, 32, 3), (7, 8, 64, 10), (3, 1, 128, 10), (2, 64, 32, 10),
+          (11, 8, 256, 10), (6, 12, 256, 10), (5, 16, 256, 10), (9, 20, 256, 10)]
+# f32: summation order only; bf16: e is rounded to bf16 before the second
+# product, and one flipped rounding moves an output by about one bf16 step
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,A,H,nf", SHAPES)
+def test_kernel_matches_plain(B, A, H, nf, dtype):
+    _need_card()
+    args, mask = _inputs(B, A, H, nf, dtype)
+    before = fused_edge_chain.launches
+    out = fused_edge_chain(*args, num_freqs=nf)
+    torch.cuda.synchronize()
+    assert fused_edge_chain.launches == before + 1
+    ref = fused_edge_chain_plain(*args, num_freqs=nf)
+    scale = max(1.0, ref.float().abs().max().item())
+    assert out.dtype == dtype and out.shape == (B, A, H)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype] * scale
+    assert bool((out[~mask] == 0).all())
+
+
+def test_kernel_rejects_what_it_does_not_take():
+    _need_card()
+    args, _ = _inputs(2, 4, 32, 3, torch.float32)
+    with pytest.raises(ValueError):  # mixed compute dtypes
+        fused_edge_chain(args[0], args[1].half(), *args[2:], num_freqs=3)
+    with pytest.raises(ValueError):  # non-contiguous term
+        fused_edge_chain(args[0].transpose(0, 1), *args[1:], num_freqs=3)
+    with pytest.raises(ValueError):  # width the kernel has no instance for
+        a, _ = _inputs(2, 4, 48, 3, torch.float32)
+        fused_edge_chain(*a, num_freqs=3)
+
+
+def test_score_net_kernel_matches_plain_on_card():
+    _need_card()
+    torch.manual_seed(0)
+    model = MatterGenDiffusion(
+        MatterGenConfig(hidden_dim=64, num_layers=2, time_dim=32, timesteps=16),
+        device="cuda",
+    )
+    B, A = 6, 12
+    g = torch.Generator(device="cuda").manual_seed(0)
+    na = torch.randint(1, A + 1, (B,), generator=g, device="cuda")
+    mask = torch.arange(A, device="cuda")[None] < na[:, None]
+    noised = MGNoised(
+        torch.full((B,), 0.5, device="cuda"),
+        torch.randn((B, 32), generator=g, device="cuda"),
+        torch.randint(0, 100, (B, A), generator=g, device="cuda"),
+        torch.rand((B, A, 3), generator=g, device="cuda"),
+        torch.eye(3, device="cuda")[None] * 3 + 0.1 * torch.randn((B, 3, 3), generator=g, device="cuda"),
+    )
+    with torch.no_grad():
+        fused = model.apply_net(noised, na, mask, fused_edge=True)
+        plain = model.apply_net(noised, na, mask, fused_edge=False)
+    for k in plain:
+        torch.testing.assert_close(fused[k], plain[k], atol=2e-4, rtol=0, msg=k)
+
+
+def test_sampling_on_card_launches_the_kernel():
+    _need_card()
+    torch.manual_seed(0)
+    cfg = MatterGenConfig(hidden_dim=32, num_layers=2, time_dim=16, timesteps=5)
+    model = MatterGenDiffusion(cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    fused_edge_chain.launches = 0
+    outs = model.sample_bucketed(
+        g, [torch.tensor([1, 3, 4]), torch.tensor([6, 8])], [4, 8]
+    )
+    torch.cuda.synchronize()
+    assert fused_edge_chain.launches == 2 * 2 * 5 * 2  # layers x evals x steps x buckets
+    for o, cap in zip(outs, (4, 8)):
+        assert o.frac_coords.shape[1] == cap
+        assert torch.isfinite(o.lattice).all()

@@ -1,0 +1,106 @@
+"""The port stands alone: it imports torch, numpy and the standard library
+only, never JAX, flax, PyYAML or ``matinvent_tpu`` (the card machine has none
+of them), and ``chip_smoke.py`` fails cleanly where it cannot run."""
+from __future__ import annotations
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "matinvent_tpu_torch"
+ALLOWED = {"torch", "numpy", "matinvent_tpu_torch"} | set(sys.stdlib_module_names)
+
+# a meta-path finder that refuses the modules the card machine lacks; the
+# exact top-level name, so matinvent_tpu_torch still imports
+BLOCKER = textwrap.dedent(
+    """
+    import sys
+    BLOCKED = {"jax", "jaxlib", "flax", "yaml", "matinvent_tpu"}
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+    """
+)
+
+
+def _run(code: str, cwd: Path = ROOT, timeout: int = 240) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    return subprocess.run(
+        [sys.executable, "-c", BLOCKER + code], cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=timeout,
+    )
+
+
+def test_port_imports_and_samples_without_jax_yaml_or_the_jax_package():
+    proc = _run(textwrap.dedent(
+        """
+        import importlib, pkgutil
+        import torch
+        import matinvent_tpu_torch as pkg
+        torch.set_num_threads(1)
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke  # imports only, runs nothing
+        from matinvent_tpu_torch.models.mattergen.diffusion import MatterGenConfig, MatterGenDiffusion
+        from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
+        from matinvent_tpu_torch.models.suite.mattergen import load_config
+        assert load_config(chip_smoke.CKPT).hidden_dim == 256
+        model = MatterGenDiffusion(
+            MatterGenConfig(hidden_dim=16, num_layers=1, time_dim=8, timesteps=3), device="cpu")
+        batch = MatterGenSampler(batch_size=8, num_batches=1, size_buckets=2, max_atoms=8).launch(model)
+        assert torch.isfinite(batch.lattice).all()
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("modules", len(names))
+        """
+    ))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "modules" in proc.stdout
+
+
+def _imports(path: Path) -> set[str]:
+    tops = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            tops.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops.add(node.module.split(".")[0])
+    return tops
+
+
+def test_ast_imports_are_torch_numpy_and_stdlib_only():
+    # _build/ holds kernel builds made at run time, not package sources
+    files = [p for p in sorted(PACKAGE.rglob("*.py")) if "_build" not in p.parts]
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        extra = _imports(path) - ALLOWED
+        assert not extra, f"{path.relative_to(ROOT)} imports {sorted(extra)}"
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    # this machine has no card: the script must exit non-zero with no result
+    proc = _run("import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')")
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    # a directory holding chip_smoke.py and nothing else of the repo
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    alone = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert alone.returncode != 0
+    assert '"ok"' not in alone.stdout
