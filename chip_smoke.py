@@ -2,17 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``matinvent_tpu_torch/csrc`` with
-``nvcc``, holds it against its plain PyTorch version, runs the full-width
-``rl_hhi_rich5`` score net through both edge paths, and samples 256 crystals
-at T=1000 through the user entry point (``MatterGenSampler`` ->
-``MatterGenDiffusion.sample_bucketed``), counting the kernel's launches.
-Each phase prints one JSON line; the line before the last is the
-``{"kernels": [...]}`` record and the last line is
-``{"ok": true, "device": {...}}``. Any failed check raises and the script
-exits non-zero without that line. It needs one CUDA card; without one it
-exits non-zero at once. It writes nothing but the kernel build
-(``matinvent_tpu_torch/_build/``).
+Builds the port's CUDA kernels from ``matinvent_tpu_torch/csrc`` with
+``nvcc`` (one process per source, in parallel) and holds each against its
+plain PyTorch version. Then it drives the port's two paths, each with the
+launch counts set to 0 just before and read just after:
+
+* the fused-edge harnesses (``python -m
+  matinvent_tpu_torch.experiments.fused_edge_ab`` / ``fused_edge_flat``,
+  phase ``edge_ablation``) at their full width, which launch the ablation
+  modes of the edge kernel, the flat edge MLP and the precomputed-embedding
+  kernel;
+* sampling: the full-width ``rl_hhi_rich5`` score net through both edge
+  paths, then 256 crystals at T=1000 through the user entry point
+  (``MatterGenSampler`` -> ``MatterGenDiffusion.sample_bucketed``), which
+  launches the edge kernel.
+
+Each phase prints one JSON line (the harnesses print their own records
+too); the line before the last is the ``{"kernels": [...]}`` record and the
+last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
+the script exits non-zero without that line. It needs one CUDA card;
+without one it exits non-zero at once. It writes nothing but the kernel
+builds (``matinvent_tpu_torch/_build/``).
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +39,9 @@ import torch
 
 from matinvent_tpu_torch.chem.validity import structure_validity
 from matinvent_tpu_torch.csrc.build import build
+from matinvent_tpu_torch.experiments import fused_edge_ab, fused_edge_flat
+from matinvent_tpu_torch.experiments.timing import bound_ms, nbytes, time_ms
+from matinvent_tpu_torch.models.cspnet import sinusoids_embedding
 from matinvent_tpu_torch.models.mattergen.diffusion import MGNoised
 from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
 from matinvent_tpu_torch.models.suite.mattergen import load_model
@@ -37,10 +51,10 @@ ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "experiments/results/rl_hhi_rich5/models/final"
 DEV = "cuda"
 BATCH, BUCKETS, MAX_ATOMS, SEED = 256, 4, 20, 0
-# published H100 SXM peaks (NVIDIA data sheet, 700 W): memory rate, FP32
-# outside the tensor cores, dense bf16 tensor cores
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+SOURCES = ("fused_edge", "edge_flat")  # csrc/<name>.cu
+# (crystals, cap) of the harness kernels' checks: the harnesses' full width
+# (bench.py's dominant bucket) and an odd shape (81,200 and 1,183 flat rows)
+EDGE_SHAPES = [(203, 20), (7, 13)]
 # kernel vs plain version: f32 differs only by summation order (1e-4 of the
 # output's scale); bf16 rounds e to bf16 before the second product, and one
 # flipped rounding moves an output by about one bf16 step (2^-6 of scale)
@@ -76,46 +90,44 @@ def edge_inputs(B: int, A: int, H: int, nf: int, dtype, gen, num_atoms=None):
 def check_kernel(args, mask, nf: int) -> float:
     """Max |kernel - plain| on one input; raises past the tolerance or when a
     padded row is not exactly 0."""
-    dtype = args[0].dtype
     out = fused_edge_chain(*args, num_freqs=nf)
     torch.cuda.synchronize()
     ref = fused_edge_chain_plain(*args, num_freqs=nf)
+    return check_close(out, ref, f"{tuple(args[0].shape)} {args[0].dtype}", mask)
+
+
+def check_close(out, ref, what: str, mask=None) -> float:
+    """Max |kernel - plain|; raises past ``TOL`` of the output's scale, on a
+    non-finite output, or when a padded row (``mask`` false) is not
+    exactly 0."""
     if not torch.isfinite(out.float()).all():
-        raise AssertionError("kernel output is not finite")
+        raise AssertionError(f"{what}: kernel output is not finite")
     err = (out.float() - ref.float()).abs().max().item()
-    tol = TOL[dtype] * max(1.0, ref.float().abs().max().item())
-    shape = tuple(args[0].shape)
+    tol = TOL[out.dtype] * max(1.0, ref.float().abs().max().item())
     if err > tol:
-        raise AssertionError(f"kernel vs plain {shape} {dtype}: {err} > {tol}")
-    if (out[~mask] != 0).any():
-        raise AssertionError(f"padded rows not exactly 0 {shape} {dtype}")
+        raise AssertionError(f"{what}: kernel vs plain {err} > {tol}")
+    if mask is not None and (out[~mask] != 0).any():
+        raise AssertionError(f"{what}: padded rows not exactly 0")
     return err
-
-
-def time_ms(fn, iters: int) -> float:
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(args, num_atoms, nf: int) -> tuple[float, str]:
     """Least time (ms) for one call: bytes of the inputs read once and the
     output written once over the memory rate, against the flops the real
     (i, j) pairs need over the dtype's peak; whichever is larger."""
-    dtype = args[0].dtype
     H = args[0].shape[-1]
-    nbytes = sum(a.numel() * a.element_size() for a in args) + args[0].numel() * args[0].element_size()
     pairs = float((num_atoms.to(torch.float64) ** 2).sum().item())
     flops = 2.0 * pairs * (6 * nf * H + H * H)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+    return bound_ms(nbytes(*args) + nbytes(args[0]), flops, args[0].dtype)
+
+
+def library_chain(args, nf: int) -> torch.Tensor:
+    """``fused_edge_chain``'s function as a chain of PyTorch ops (cuBLAS
+    products), the yardstick of its time; the port never calls it."""
+    ti, tj, fr, ui, uj, wd, w1, b1 = args
+    fd = (fr[:, None, :, :] - fr[:, :, None, :]) % 1.0
+    dist = sinusoids_embedding(fd, nf).to(ti.dtype)
+    return fused_edge_ab.chain_from_emb(ti, tj, dist, ui, uj, wd, w1, b1)
 
 
 def phase_device() -> dict:
@@ -135,13 +147,30 @@ def phase_device() -> dict:
     return rec
 
 
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel instance: its (mangled) name, registers and
+    spills, from nvcc's ``-Xptxas -v`` output."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and ("registers" in ln or "spill" in ln):
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
 def phase_build() -> dict:
+    """Builds every source at once, one nvcc each."""
     t0 = time.perf_counter()
-    built = build("fused_edge")
-    report = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = dict(zip(SOURCES, pool.map(build, SOURCES)))
     rec = dict(
-        phase="build", library=str(built.path.relative_to(ROOT)),
-        nvcc_seconds=built.seconds, seconds=time.perf_counter() - t0, ptxas=report,
+        phase="build", seconds=time.perf_counter() - t0,
+        libraries={
+            name: dict(library=str(b.path.relative_to(ROOT)), nvcc_seconds=b.seconds,
+                       ptxas=ptxas_report(b.log))
+            for name, b in built.items()
+        },
     )
     emit(rec)
     return rec
@@ -179,6 +208,7 @@ def phase_kernel(H: int = 256, nf: int = 10) -> dict:
             row[f"{tag}_plain_ms"] = time_ms(
                 lambda: fused_edge_chain_plain(*args, num_freqs=nf), 10
             )
+            row[f"{tag}_library_ms"] = time_ms(lambda: library_chain(args, nf), 10)
             row[f"{tag}_bound_ms"], row[f"{tag}_bound_by"] = bound(args, num_atoms, nf)
         buckets.append(row)
     rec = dict(
@@ -187,6 +217,87 @@ def phase_kernel(H: int = 256, nf: int = 10) -> dict:
         tol_bf16=TOL[torch.bfloat16], buckets=buckets,
         seconds=time.perf_counter() - t0,
     )
+    emit(rec)
+    return rec
+
+
+LIBRARY = "chain of PyTorch ops, cuBLAS products"
+# the harnesses' kernels: the wrapper that counts its launches, its source
+# and the Pallas kernel it replaces
+HARNESS_KERNELS = {
+    "fused_edge_variant": (fused_edge_ab.edge_variant, "matinvent_tpu_torch/csrc/fused_edge.cu",
+                           "experiments/fused_edge_ab_r5.py:47"),
+    "flat_edge_mlp": (fused_edge_flat.flat_edge_mlp, "matinvent_tpu_torch/csrc/edge_flat.cu",
+                      "experiments/fused_edge_flat_r5.py:41"),
+    "fused_edge_demb": (fused_edge_flat.demb_edge, "matinvent_tpu_torch/csrc/fused_edge.cu",
+                        "experiments/fused_edge_flat_r5.py:83"),
+}
+
+
+def phase_edge_ablation() -> dict:
+    """The fused-edge harnesses' kernels against their plain versions at the
+    harnesses' full width (203 crystals at cap 20, 81,200 rows) and at an
+    odd shape, then both harnesses' entry points at full width."""
+    t0 = time.perf_counter()
+    errs = {name: 0.0 for name in HARNESS_KERNELS}
+    for seed, (crystals, atoms) in enumerate(EDGE_SHAPES, start=3):
+        args, na = fused_edge_ab.make_inputs(np.random.default_rng(seed), crystals, atoms, DEV)
+        mask = torch.as_tensor(np.arange(atoms)[None, :] < na[:, None], device=DEV)
+        for mode in fused_edge_ab.ABLATIONS:
+            out = fused_edge_ab.edge_variant(mode, *args)
+            torch.cuda.synchronize()
+            ref = fused_edge_ab.edge_variant_plain(mode, *args)
+            err = check_close(out, ref, f"{mode} {crystals}x{atoms}", mask)
+            errs["fused_edge_variant"] = max(errs["fused_edge_variant"], err)
+        flat, demb, na = fused_edge_flat.make_inputs(
+            np.random.default_rng(seed), crystals, atoms, DEV
+        )
+        mask = torch.as_tensor(np.arange(atoms)[None, :] < na[:, None], device=DEV)
+        out = fused_edge_flat.flat_edge_mlp(*flat)
+        torch.cuda.synchronize()
+        err = check_close(out, fused_edge_flat.flat_edge_mlp_plain(*flat), f"flat R={len(out)}")
+        errs["flat_edge_mlp"] = max(errs["flat_edge_mlp"], err)
+        out = fused_edge_flat.demb_edge(*demb)
+        torch.cuda.synchronize()
+        err = check_close(out, fused_edge_flat.demb_edge_plain(*demb),
+                          f"demb {crystals}x{atoms}", mask)
+        errs["fused_edge_demb"] = max(errs["fused_edge_demb"], err)
+
+    # the path: both harnesses as a user runs them, counting launches
+    for fn, _, _ in HARNESS_KERNELS.values():
+        fn.launches = 0
+    fused_edge_chain.launches = 0
+    ab = fused_edge_ab.main()
+    flat = fused_edge_flat.main()
+    if fused_edge_chain.launches:
+        raise AssertionError("the harnesses launched fused_edge_chain's wrapper")
+
+    def timing(part, chain_ms):
+        return dict(ms=part["ms"], plain_ms=part["plain_ms"], library_ms=chain_ms)
+
+    full = ab["modes"]["full"]  # the sampler's instance at the harness shape
+    kernels = {
+        "fused_edge_variant": dict(
+            timing(full, ab["torch_chain_ms"]), bound_ms=ab["bound_ms"],
+            bound_by=ab["bound_by"], modes_ms={m: r["ms"] for m, r in ab["modes"].items()},
+            modes_plain_ms={m: r["plain_ms"] for m, r in ab["modes"].items()},
+        ),
+        **{
+            name: dict(timing(flat[part], flat[part]["torch_chain_ms"]),
+                       bound_ms=flat[part]["bound_ms"], bound_by=flat[part]["bound_by"])
+            for name, part in (("flat_edge_mlp", "flat"), ("fused_edge_demb", "demb"))
+        },
+    }
+    for name, (fn, _, _) in HARNESS_KERNELS.items():
+        if fn.launches == 0:
+            raise AssertionError(f"{name} was not launched by the harnesses")
+        kernels[name].update(launches=fn.launches, max_abs_err=errs[name])
+    times = [t for k in kernels.values() for t in (k["ms"], k["plain_ms"], k["library_ms"])]
+    times += [t for m in ab["modes"].values() for t in (m["ms"], m["plain_ms"])]
+    if not all(math.isfinite(t) and t > 0 for t in times):
+        raise AssertionError(f"a harness time is not a positive number: {times}")
+    rec = dict(phase="edge_ablation", tol_bf16=TOL[torch.bfloat16], kernels=kernels,
+               seconds=time.perf_counter() - t0)
     emit(rec)
     return rec
 
@@ -280,12 +391,14 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     kern = phase_kernel()
+    abl = phase_edge_ablation()
     model = load_model(CKPT, device=DEV)
     phase_score_net(model)
     samp = phase_sampling(model)
     b = kern["buckets"]
-    emit({"kernels": [dict(
-        name="fused_edge_chain", route="cuda", impl="cuda", checked=True,
+    common = dict(route="cuda", impl="cuda", checked=True)
+    emit({"kernels": [dict(common,
+        name="fused_edge_chain",
         source="matinvent_tpu_torch/csrc/fused_edge.cu",
         replaces="matinvent_tpu/ops/fused_edge.py:73",
         launches=samp["kernel_launches"],
@@ -296,11 +409,20 @@ def main() -> int:
         plain_ms=sum(r["f32_plain_ms"] for r in b),
         bound_ms=sum(r["f32_bound_ms"] for r in b),
         bound_by=b[-1]["f32_bound_by"],
-        # no single PyTorch call computes this chain
-        library_ms=None,
+        # no single PyTorch call computes this chain: the time of the same
+        # function as a chain of PyTorch ops (cuBLAS products), f32
+        library_ms=sum(r["f32_library_ms"] for r in b),
+        library=LIBRARY,
         bf16_ms=sum(r["bf16_ms"] for r in b),
         bf16_bound_ms=sum(r["bf16_bound_ms"] for r in b),
-    )]})
+        bf16_library_ms=sum(r["bf16_library_ms"] for r in b),
+    )] + [
+        # #2's times and bound are those of mode "full" (the sampler's
+        # instance) at the harness's shape, bf16; every mode in modes_ms
+        dict(common, name=name, source=HARNESS_KERNELS[name][1],
+             replaces=HARNESS_KERNELS[name][2], library=LIBRARY, **k)
+        for name, k in abl["kernels"].items()
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"], "count": dev["count"]}})
     return 0
 

@@ -8,8 +8,11 @@ needs one of that package's host-side helpers, it keeps its own copy.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise (see ``device.resolve_device``).
-The one hand-written kernel, ``ops.fused_edge.fused_edge_chain``, is a CUDA
-C++ source under ``csrc/`` that is built with ``nvcc`` on first use.
+The hand-written kernels are CUDA C++ sources under ``csrc/``, built with
+``nvcc`` on first use: the sampler's fused edge branch
+(``ops.fused_edge.fused_edge_chain``) and, for the fused-edge harnesses of
+``experiments/``, its ablation modes, a precomputed-embedding mode and the
+flat edge MLP.
 """
 
 __version__ = "0.1.0"

@@ -2,16 +2,20 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into ``matinvent_tpu_torch/_build/lib<name>-<hash>.so``, where the hash
-covers the source and the flags, so an edited source is rebuilt. PyTorch's
-headers are not included and ``torch.utils.cpp_extension`` is not used: the
-build takes seconds. A missing ``nvcc`` or a failed build raises with the
-compiler's output; nothing falls back.
+covers the source, every ``csrc/`` header it includes (directly or through
+another header) and the flags, so an edited source or header is rebuilt.
+Threads may build different sources at the same time: nvcc runs outside
+the lock. PyTorch's headers are not included and
+``torch.utils.cpp_extension`` is not used: the build takes seconds. A
+missing ``nvcc`` or a failed build raises with the compiler's output;
+nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,7 +34,9 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+_lock = threading.Lock()  # guards _loaded
 _loaded: dict[str, "Built"] = {}
 
 
@@ -56,40 +62,59 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def source_digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash of ``csrc/<name>.cu``, of every file of ``csrc`` that it
+    ``#include "..."``s (followed through headers, each file once) and of
+    the flags. A quoted include that is not in ``csrc`` is left to nvcc."""
+    root = csrc.resolve()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [root / f"{name}.cu"], set()
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text + b"\0")
+        for inc in _INCLUDE.findall(text):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file() and dep.is_relative_to(root):
+                todo.append(dep)
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Built:
     """Compile (once) and load ``csrc/<name>.cu``."""
     with _lock:
         if name in _loaded:
             return _loaded[name]
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
-        log_path = lib_path.with_suffix(".log")
-        seconds = 0.0
-        if not lib_path.exists():
-            nvcc = find_nvcc()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
-                capture_output=True,
-                text=True,
+    src = CSRC / f"{name}.cu"
+    digest = source_digest(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
+    log_path = lib_path.with_suffix(".log")
+    seconds = 0.0
+    if not lib_path.exists():
+        nvcc = find_nvcc()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+            capture_output=True,
+            text=True,
+        )
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed to build {src} (exit {proc.returncode}):\n{log}"
             )
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed to build {src} (exit {proc.returncode}):\n{log}"
-                )
-            log_path.write_text(log)
-            # atomic: a concurrent build of the same source sees a whole file
-            os.replace(tmp, lib_path)
-        log = log_path.read_text() if log_path.exists() else ""
-        built = Built(ctypes.CDLL(str(lib_path)), lib_path, log, seconds)
-        _loaded[name] = built
-        return built
+        log_path.write_text(log)
+        # atomic: a concurrent build of the same source sees a whole file
+        os.replace(tmp, lib_path)
+    log = log_path.read_text() if log_path.exists() else ""
+    built = Built(ctypes.CDLL(str(lib_path)), lib_path, log, seconds)
+    with _lock:
+        return _loaded.setdefault(name, built)

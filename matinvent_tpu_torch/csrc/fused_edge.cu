@@ -4,7 +4,8 @@
 // (launched by `fused_edge_chain`, :119). For a batch of crystals it computes
 //
 //     fd    = (x_j - x_i) mod 1                             [B, A, A, 3]
-//     emb   = concat(sin(2 pi m fd), cos(2 pi m fd))        6*nf lanes
+//     ph_l  = fd . fmat[:, l]                               phases, lane l
+//     emb_l = sin(ph_l) for l < n_sin, else cos(ph_l)       `lanes` lanes
 //     e     = silu(emb @ w_d + term_i[i] + term_j[j])
 //     s     = silu(e @ w_1 + b_1)
 //     out_i = u_i * sum_j s_ij * u_j                        [B, A, H]
@@ -12,7 +13,22 @@
 // with f32 accumulation and the compute dtype T (float or bf16) for the
 // node terms, the weights and the output. The phases, the elementwise chain
 // and the j-sum stay in f32; emb and e are rounded to T before their
-// products, as the Pallas kernel casts them for the MXU.
+// products, as the Pallas kernel casts them for the MXU. The sampler passes
+// fmat = 2 pi m on the lane (s, m) (space-major, sin half then cos half) and
+// 6 nf lanes.
+//
+// The same body, with parts switched off at compile time, also replaces the
+// two ablation kernels of the fused-edge harnesses (the production launch
+// is mode kFull, so an ablation is measured on the kernel that samples):
+//   experiments/fused_edge_ab_r5.py:47 `_kernel_variant`
+//     kNoSin     raw phases instead of sin/cos          (Emb::kPhase)
+//     kNoBcast   no term_i + term_j, j-slice for j-sum  (!kBcast, !kAgg)
+//     kNoAgg     out_i = u_i * s_{i, jsel}              (!kAgg)
+//     kGemmOnly  all three removed
+//   experiments/fused_edge_flat_r5.py:83 `_demb_kernel`
+//     kDemb      emb read from a precomputed [B, A, A, lanes] input
+// The j-slice index jsel is a kernel argument, so every row's products
+// still run when only the rows j = jsel reach the output.
 //
 // What bounds it: at the sampler's shapes (H = 256, caps A <= 20) each
 // crystal's A*A edge rows cost 2*(64*H + H*H) flops against 3*A*H elements of
@@ -23,182 +39,47 @@
 //  * one block of 256 threads owns one crystal and a run of whole rows i
 //    (floor(64 / A) of them, i.e. at most 64 edge rows), so the j-reduction
 //    never crosses blocks and needs no atomics;
-//  * the Fourier embedding and e live in shared memory, stored k-major so a
-//    warp reads its rows as one broadcast;
-//  * w_d and w_1 stream from L2 in 16-row tiles, double-buffered with
-//    cp.async, and each thread accumulates an (H/32) x 8 register tile;
-//  * 2 blocks fit on one SM (about 100 KB of shared memory each).
+//  * the embedding and e live in shared memory, k-major, and w_d and w_1
+//    stream from L2 (edge_tiles.cuh);
+//  * 2 blocks fit on one SM (about 102 KB of shared memory each).
 // The padded rows of a crystal (u_i = 0) come out as exactly 0.
 //
 // The launch function has a plain C interface (raw pointers, the stream),
 // returns cudaGetLastError(), and is bound from Python with ctypes
 // (matinvent_tpu_torch/ops/fused_edge.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "edge_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;            // edge rows (i, j) per block
-constexpr int kLda = kRows + 4;      // k-major stride of the A operand
-constexpr int kMaxLanes = 64;        // 6 * num_freqs rounded up to kKt
-constexpr int kKt = 16;              // k-rows of one streamed weight tile
+using namespace edge_tiles;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// Where a block's embedding lanes come from.
+enum class Emb {
+  kSinCos,  // sin / cos of the phases (the production kernel)
+  kPhase,   // the raw phases, no transcendentals
+  kRead,    // read from a precomputed [B, A, A, lanes] input
+};
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// Modes of fused_edge_launch.
+enum Mode { kFull, kNoSin, kNoBcast, kNoAgg, kGemmOnly, kDemb };
 
-// x rounded to T and back: the operand rounding of a product in T.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
+struct EdgeArgs {
+  const void* ti;
+  const void* tj;
+  const float* fr;
+  const float* fmat;
+  const void* de;
+  const float* ui;
+  const float* uj;
+  const void* wd;
+  const void* w1;
+  const void* b1;
+  void* out;
+  int B, A, lanes, n_sin, jsel;
+};
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(q[0]);
-  const float2 b = __bfloat1622float2(q[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
-
-// RM consecutive floats at p (aligned to their vector width).
-template <int RM>
-__device__ __forceinline__ void load_rows(const float* p, float (&a)[RM]) {
-  if constexpr (RM % 4 == 0) {
-#pragma unroll
-    for (int m = 0; m < RM; m += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + m);
-      a[m] = v.x;
-      a[m + 1] = v.y;
-      a[m + 2] = v.z;
-      a[m + 3] = v.w;
-    }
-  } else if constexpr (RM == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    a[0] = v.x;
-    a[1] = v.y;
-  } else {
-    a[0] = p[0];
-  }
-}
-
-template <int RM>
-__device__ __forceinline__ void store_rows(float* p, const float (&a)[RM]) {
-  if constexpr (RM % 4 == 0) {
-#pragma unroll
-    for (int m = 0; m < RM; m += 4) {
-      *reinterpret_cast<float4*>(p + m) =
-          make_float4(a[m], a[m + 1], a[m + 2], a[m + 3]);
-    }
-  } else if constexpr (RM == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
-  } else {
-    p[0] = a[0];
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [k0, k0 + kKt) of the row-major [kvalid, H] weight W into dst;
-// rows at or past kvalid are zero-filled.
-template <typename T, int H>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ W,
-                                          int k0, int kvalid, int tid) {
-  constexpr int kRowBytes = H * static_cast<int>(sizeof(T));
-  constexpr int kChunksPerRow = kRowBytes / 16;
-  constexpr int kChunks = kKt * kChunksPerRow;
-  const char* base = reinterpret_cast<const char*>(W);
-  char* out = reinterpret_cast<char*>(dst);
-  for (int idx = tid; idx < kChunks; idx += kThreads) {
-    const int row = idx / kChunksPerRow;
-    const int cb = (idx % kChunksPerRow) * 16;
-    const bool ok = (k0 + row) < kvalid;
-    const char* src =
-        ok ? base + static_cast<size_t>(k0 + row) * kRowBytes + cb : base;
-    cp_async16(out + row * kRowBytes + cb, src, ok ? 16 : 0);
-  }
-}
-
-// acc[m][n] = sum_k aT[k][ty*RM + m] * W[k][col(n)] over k < K (a multiple
-// of kKt); W rows at or past kvalid read as 0. Thread (tx, ty) owns rows
-// ty*RM .. ty*RM+RM-1 and columns tx*4..tx*4+3 and H/2+tx*4..H/2+tx*4+3.
-template <typename T, int H>
-__device__ __forceinline__ void gemm_block(const float* aT,
-                                           const T* __restrict__ W, int K,
-                                           int kvalid, T* btile,
-                                           float (&acc)[H / 32][8], int tid) {
-  constexpr int RM = H / 32;
-  constexpr int TX = H / 8;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-#pragma unroll
-  for (int m = 0; m < RM; ++m) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = 0.0f;
-  }
-  const int ntiles = K / kKt;
-  load_tile<T, H>(btile, W, 0, kvalid, tid);
-  cp_async_commit();
-  for (int t = 0; t < ntiles; ++t) {
-    const T* cur = btile + (t & 1) * kKt * H;
-    if (t + 1 < ntiles) {
-      load_tile<T, H>(btile + ((t + 1) & 1) * kKt * H, W, (t + 1) * kKt,
-                      kvalid, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kKt; ++kk) {
-      float a[RM];
-      load_rows<RM>(aT + (t * kKt + kk) * kLda + ty * RM, a);
-      const T* brow = cur + kk * H;
-      const float4 b0 = load4(brow + tx * 4);
-      const float4 b1 = load4(brow + H / 2 + tx * 4);
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int m = 0; m < RM; ++m) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
-      }
-    }
-    // every thread is done with `cur` before the next tile overwrites it
-    __syncthreads();
-  }
-}
-
-template <typename T, int H>
+template <int H>
 __host__ __device__ constexpr size_t operand_bytes() {
   // max of the embedding [kMaxLanes][kLda], e [H][kLda] and the
   // reduction buffer [kRows][H + 4], all f32
@@ -209,28 +90,25 @@ __host__ __device__ constexpr size_t operand_bytes() {
   return m > red ? m : red;
 }
 
-template <typename T, int H>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return operand_bytes<T, H>() + size_t(2) * kKt * H * sizeof(T);
-}
-
-template <typename T, int H>
+template <typename T, int H, Emb E, bool kBcast, bool kAgg>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_edge_kernel(const T* __restrict__ ti, const T* __restrict__ tj,
                       const float* __restrict__ fr,
-                      const float* __restrict__ ui,
+                      const float* __restrict__ fmat,
+                      const T* __restrict__ de, const float* __restrict__ ui,
                       const float* __restrict__ uj, const T* __restrict__ wd,
                       const T* __restrict__ w1, const T* __restrict__ b1,
-                      T* __restrict__ out, int A, int num_freqs, int rows_i,
-                      int n_chunks) {
+                      T* __restrict__ out, int A, int lanes, int n_sin,
+                      int jsel, int rows_i, int n_chunks) {
   constexpr int RM = H / 32;
   constexpr int TX = H / 8;
   constexpr int kLdr = H + 4;  // row stride of the reduction buffer
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // one f32 region, used in turn as the embedding, as e and as s * u_j
   float* opnd = reinterpret_cast<float*>(smem_raw);
-  T* btile = reinterpret_cast<T*>(smem_raw + operand_bytes<T, H>());
-  __shared__ float frs[kRows][3];
+  T* btile = reinterpret_cast<T*>(smem_raw + operand_bytes<H>());
+  __shared__ float frs[kRows][3];       // coords of the crystal's atoms
+  __shared__ float fms[3][kMaxLanes];   // fmat
 
   const int tid = threadIdx.x;
   const int tx = tid % TX;
@@ -239,40 +117,62 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int i0 = (blockIdx.x % n_chunks) * rows_i;
   const int n_i = min(rows_i, A - i0);
   const int rows = n_i * A;  // live edge rows of this block
-  const int D = 6 * num_freqs;
-  const int Kd = ((D + kKt - 1) / kKt) * kKt;
+  const int Kd = ((lanes + kKt - 1) / kKt) * kKt;
 
-  for (int idx = tid; idx < A * 3; idx += kThreads) {
-    frs[idx / 3][idx % 3] = fr[static_cast<size_t>(b) * A * 3 + idx];
-  }
-  __syncthreads();
-
-  // Fourier embedding, k-major: opnd[l * kLda + r]. Lane l < 3nf is
-  // sin(2 pi m fd_s) with (s, m) = divmod(l, nf); the next 3nf lanes are
-  // the cosines; lanes past 6nf are 0 (their weight rows are zero-filled).
-  for (int idx = tid; idx < Kd * kRows; idx += kThreads) {
-    const int l = idx / kRows;
-    const int r = idx % kRows;
-    float v = 0.0f;
-    if (r < rows && l < D) {
-      const int i = i0 + r / A;
-      const int j = r % A;
-      const int rem = l % (3 * num_freqs);
-      const int s = rem / num_freqs;
-      const int m = rem % num_freqs;
-      float fd = frs[j][s] - frs[i][s];
-      fd = fd - floorf(fd);
-      const float ph = fd * static_cast<float>(6.283185307179586 * m);
-      v = l < 3 * num_freqs ? sinf(ph) : cosf(ph);
+  // the embedding, k-major: opnd[l * kLda + r]; lanes past `lanes` are 0
+  // (their weight rows are zero-filled)
+  if constexpr (E == Emb::kRead) {
+    for (int idx = tid; idx < kRows * Kd; idx += kThreads) {
+      const int r = idx / Kd;
+      const int l = idx % Kd;
+      float v = 0.0f;
+      if (r < rows && l < lanes) {
+        const int i = i0 + r / A;
+        const int j = r % A;
+        v = to_float(de[((static_cast<size_t>(b) * A + i) * A + j) * lanes + l]);
+      }
+      opnd[l * kLda + r] = v;
     }
-    opnd[l * kLda + r] = round_to<T>(v);
+  } else {
+    for (int idx = tid; idx < A * 3; idx += kThreads) {
+      frs[idx / 3][idx % 3] = fr[static_cast<size_t>(b) * A * 3 + idx];
+    }
+    for (int idx = tid; idx < 3 * lanes; idx += kThreads) {
+      fms[idx / lanes][idx % lanes] = fmat[idx];
+    }
+    __syncthreads();
+    for (int idx = tid; idx < Kd * kRows; idx += kThreads) {
+      const int l = idx / kRows;
+      const int r = idx % kRows;
+      float v = 0.0f;
+      if (r < rows && l < lanes) {
+        const int i = i0 + r / A;
+        const int j = r % A;
+        float fd[3];
+#pragma unroll
+        for (int s = 0; s < 3; ++s) {
+          fd[s] = frs[j][s] - frs[i][s];
+          fd[s] = fd[s] - floorf(fd[s]);
+        }
+        // rounded as written (no contraction), as the plain version sums
+        const float ph = __fadd_rn(
+            __fadd_rn(__fmul_rn(fd[0], fms[0][l]), __fmul_rn(fd[1], fms[1][l])),
+            __fmul_rn(fd[2], fms[2][l]));
+        if constexpr (E == Emb::kSinCos) {
+          v = l < n_sin ? sinf(ph) : cosf(ph);
+        } else {
+          v = ph;
+        }
+      }
+      opnd[l * kLda + r] = round_to<T>(v);
+    }
   }
   __syncthreads();
 
   float acc[RM][8];
-  gemm_block<T, H>(opnd, wd, Kd, D, btile, acc, tid);
+  gemm_block<T, H>(opnd, wd, Kd, lanes, btile, acc, tid);
 
-  // e = silu(emb @ w_d + term_i + term_j), stored k-major over columns
+  // e = silu(emb @ w_d + term_i + term_j)
   const int c0 = tx * 4;
   const int c1 = H / 2 + tx * 4;
   float e[RM][8];
@@ -280,19 +180,24 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int m = 0; m < RM; ++m) {
     const int r = ty * RM + m;
     if (r < rows) {
-      const int i = i0 + r / A;
-      const int j = r % A;
-      const T* tip = ti + (static_cast<size_t>(b) * A + i) * H;
-      const T* tjp = tj + (static_cast<size_t>(b) * A + j) * H;
-      const float4 p0 = load4(tip + c0);
-      const float4 p1 = load4(tip + c1);
-      const float4 q0 = load4(tjp + c0);
-      const float4 q1 = load4(tjp + c1);
-      const float pi_[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      const float qj[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+      if constexpr (kBcast) {
+        const int i = i0 + r / A;
+        const int j = r % A;
+        const T* tip = ti + (static_cast<size_t>(b) * A + i) * H;
+        const T* tjp = tj + (static_cast<size_t>(b) * A + j) * H;
+        const float4 p0 = load4(tip + c0);
+        const float4 p1 = load4(tip + c1);
+        const float4 q0 = load4(tjp + c0);
+        const float4 q1 = load4(tjp + c1);
+        const float pi_[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        const float qj[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        e[m][n] = round_to<T>(silu(acc[m][n] + pi_[n] + qj[n]));
+        for (int n = 0; n < 8; ++n) {
+          e[m][n] = round_to<T>(silu(acc[m][n] + pi_[n] + qj[n]));
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) e[m][n] = round_to<T>(silu(acc[m][n]));
       }
     } else {
 #pragma unroll
@@ -300,19 +205,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
   // gemm_block ended on a barrier, so the embedding is no longer read
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    float col[RM];
-#pragma unroll
-    for (int m = 0; m < RM; ++m) col[m] = e[m][n];
-    const int c = n < 4 ? c0 + n : c1 + (n - 4);
-    store_rows<RM>(opnd + c * kLda + ty * RM, col);
-  }
+  store_tile_kmajor<H>(opnd, e, tid);
   __syncthreads();
 
   gemm_block<T, H>(opnd, w1, H, H, btile, acc, tid);
 
-  // s * u_j, row-major [r][c] for the reduction over j
+  // s * u_j (or s on the rows j = jsel), row-major [r][c] for the reduction
   float bias[8];
   {
     const float4 v0 = load4(b1 + c0);
@@ -323,15 +221,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int m = 0; m < RM; ++m) {
     const int r = ty * RM + m;
-    if (r < rows) {
-      const float w = uj[static_cast<size_t>(b) * A + (r % A)];
+    const int j = r % A;
+    if (r < rows && (kAgg || j == jsel)) {
+      const float w = kAgg ? uj[static_cast<size_t>(b) * A + j] : 1.0f;
       float s[8];
 #pragma unroll
       for (int n = 0; n < 8; ++n) s[n] = silu(acc[m][n] + bias[n]) * w;
-      *reinterpret_cast<float4*>(opnd + r * kLdr + c0) =
-          make_float4(s[0], s[1], s[2], s[3]);
-      *reinterpret_cast<float4*>(opnd + r * kLdr + c1) =
-          make_float4(s[4], s[5], s[6], s[7]);
+      store4(opnd + r * kLdr + c0, s[0], s[1], s[2], s[3]);
+      store4(opnd + r * kLdr + c1, s[4], s[5], s[6], s[7]);
     }
   }
   __syncthreads();
@@ -341,51 +238,65 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int c = idx % H;
     const float* p = opnd + (il * A) * kLdr + c;
     float sum = 0.0f;
-    for (int j = 0; j < A; ++j) sum += p[j * kLdr];
+    if constexpr (kAgg) {
+      for (int j = 0; j < A; ++j) sum += p[j * kLdr];
+    } else {
+      sum = p[jsel * kLdr];
+    }
     const size_t row = static_cast<size_t>(b) * A + i0 + il;
     out[row * H + c] = from_float<T>(sum * ui[row]);
   }
 }
 
-template <typename T, int H>
-cudaError_t launch_typed(const void* ti, const void* tj, const void* fr,
-                         const void* ui, const void* uj, const void* wd,
-                         const void* w1, const void* b1, void* out, int B,
-                         int A, int num_freqs, cudaStream_t stream) {
-  const int rows_i = kRows / A;
-  const int n_chunks = (A + rows_i - 1) / rows_i;
-  constexpr size_t smem = smem_bytes<T, H>();
+template <typename T, int H, Emb E, bool kBcast, bool kAgg>
+cudaError_t launch_typed(const EdgeArgs& a, cudaStream_t stream) {
+  const int rows_i = kRows / a.A;
+  const int n_chunks = (a.A + rows_i - 1) / rows_i;
+  constexpr size_t smem = operand_bytes<H>() + tile_bytes<T, H>();
+  auto* kernel = fused_edge_kernel<T, H, E, kBcast, kAgg>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_edge_kernel<T, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  fused_edge_kernel<T, H><<<B * n_chunks, kThreads, smem, stream>>>(
-      static_cast<const T*>(ti), static_cast<const T*>(tj),
-      static_cast<const float*>(fr), static_cast<const float*>(ui),
-      static_cast<const float*>(uj), static_cast<const T*>(wd),
-      static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<T*>(out), A, num_freqs, rows_i, n_chunks);
+  kernel<<<a.B * n_chunks, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.ti), static_cast<const T*>(a.tj), a.fr, a.fmat,
+      static_cast<const T*>(a.de), a.ui, a.uj, static_cast<const T*>(a.wd),
+      static_cast<const T*>(a.w1), static_cast<const T*>(a.b1),
+      static_cast<T*>(a.out), a.A, a.lanes, a.n_sin, a.jsel, rows_i,
+      n_chunks);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_h(const void* ti, const void* tj, const void* fr,
-                     const void* ui, const void* uj, const void* wd,
-                     const void* w1, const void* b1, void* out, int B, int A,
-                     int H, int num_freqs, cudaStream_t stream) {
+cudaError_t launch_full(const EdgeArgs& a, int H, cudaStream_t stream) {
   switch (H) {
     case 32:
-      return launch_typed<T, 32>(ti, tj, fr, ui, uj, wd, w1, b1, out, B, A,
-                                 num_freqs, stream);
+      return launch_typed<T, 32, Emb::kSinCos, true, true>(a, stream);
     case 64:
-      return launch_typed<T, 64>(ti, tj, fr, ui, uj, wd, w1, b1, out, B, A,
-                                 num_freqs, stream);
+      return launch_typed<T, 64, Emb::kSinCos, true, true>(a, stream);
     case 128:
-      return launch_typed<T, 128>(ti, tj, fr, ui, uj, wd, w1, b1, out, B, A,
-                                  num_freqs, stream);
+      return launch_typed<T, 128, Emb::kSinCos, true, true>(a, stream);
     case 256:
-      return launch_typed<T, 256>(ti, tj, fr, ui, uj, wd, w1, b1, out, B, A,
-                                  num_freqs, stream);
+      return launch_typed<T, 256, Emb::kSinCos, true, true>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The ablations exist for the harnesses' shape only: bf16, H = 256.
+cudaError_t launch_ablation(int mode, const EdgeArgs& a, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  switch (mode) {
+    case kNoSin:
+      return launch_typed<T, 256, Emb::kPhase, true, true>(a, stream);
+    case kNoBcast:
+      return launch_typed<T, 256, Emb::kSinCos, false, false>(a, stream);
+    case kNoAgg:
+      return launch_typed<T, 256, Emb::kSinCos, true, false>(a, stream);
+    case kGemmOnly:
+      return launch_typed<T, 256, Emb::kPhase, false, false>(a, stream);
+    case kDemb:
+      return launch_typed<T, 256, Emb::kRead, true, true>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -393,28 +304,48 @@ cudaError_t launch_h(const void* ti, const void* tj, const void* fr,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. term_i/term_j/out [B, A, H], frac
-// [B, A, 3] f32, ui/uj [B, A] f32, wd [6*num_freqs, H], w1 [H, H] (in, out),
-// b1 [H]; all contiguous and 16-byte aligned. Returns a cudaError_t.
-extern "C" int fused_edge_chain_launch(const void* ti, const void* tj,
-                                       const void* fr, const void* ui,
-                                       const void* uj, const void* wd,
-                                       const void* w1, const void* b1,
-                                       void* out, int B, int A, int H,
-                                       int num_freqs, int dtype,
-                                       void* stream) {
-  if (B <= 0 || A <= 0 || A > kRows || num_freqs <= 0 ||
-      6 * num_freqs > kMaxLanes) {
+// mode: kFull (the sampler's kernel) .. kDemb, see Mode. dtype: 0 = float32,
+// 1 = bfloat16 (the ablations take bfloat16 and H = 256 only).
+// term_i/term_j/out [B, A, H], frac [B, A, 3] f32, fmat [3, lanes] f32,
+// de [B, A, A, lanes] (kDemb only; fr and fmat are not read then), ui/uj
+// [B, A] f32, wd [lanes, H], w1 [H, H] (in, out), b1 [H]; all contiguous
+// and 16-byte aligned. Lanes below n_sin take sin, the others cos; jsel is
+// the row j kept by the j-slice modes. Returns a cudaError_t.
+extern "C" int fused_edge_launch(int mode, const void* ti, const void* tj,
+                                 const void* fr, const void* fmat,
+                                 const void* de, const void* ui,
+                                 const void* uj, const void* wd,
+                                 const void* w1, const void* b1, void* out,
+                                 int B, int A, int H, int lanes, int n_sin,
+                                 int jsel, int dtype, void* stream) {
+  if (B <= 0 || A <= 0 || A > kRows || lanes <= 0 || lanes > kMaxLanes ||
+      n_sin < 0 || n_sin > lanes || jsel < 0 || jsel >= A) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const EdgeArgs a{ti,
+                   tj,
+                   static_cast<const float*>(fr),
+                   static_cast<const float*>(fmat),
+                   de,
+                   static_cast<const float*>(ui),
+                   static_cast<const float*>(uj),
+                   wd,
+                   w1,
+                   b1,
+                   out,
+                   B,
+                   A,
+                   lanes,
+                   n_sin,
+                   jsel};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) {
-    err = launch_h<float>(ti, tj, fr, ui, uj, wd, w1, b1, out, B, A, H,
-                          num_freqs, s);
-  } else if (dtype == 1) {
-    err = launch_h<__nv_bfloat16>(ti, tj, fr, ui, uj, wd, w1, b1, out, B, A,
-                                  H, num_freqs, s);
+  if (mode == kFull && dtype == 0) {
+    err = launch_full<float>(a, H, s);
+  } else if (mode == kFull && dtype == 1) {
+    err = launch_full<__nv_bfloat16>(a, H, s);
+  } else if (dtype == 1 && H == 256) {
+    err = launch_ablation(mode, a, s);
   } else {
     err = cudaErrorInvalidValue;
   }

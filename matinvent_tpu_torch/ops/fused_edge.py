@@ -18,18 +18,106 @@ terms), so the kernel keeps the ``[A^2, H]`` intermediates in shared memory
 and registers and streams the weights from L2; see the source for its
 layout. On a CPU tensor the wrapper runs ``fused_edge_chain_plain``, the same
 math in plain PyTorch; a CUDA tensor never takes the plain version.
+
+The same kernel body, with parts switched off at compile time, serves the
+fused-edge harnesses (``matinvent_tpu_torch/experiments``) through
+``launch_edge_kernel``; ``edge_chain_plain`` and ``phase_embedding`` are the
+plain body they all share.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
+import numpy as np
 import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HIDDEN = (32, 64, 128, 256)
 _MAX_ATOMS = 64  # edge rows of one crystal row fit one 64-row block
-_MAX_LANES = 64  # 6 * num_freqs lanes of the Fourier embedding
+_MAX_LANES = 64  # embedding lanes (6 * num_freqs for the sampler)
+# modes of csrc/fused_edge.cu's fused_edge_launch
+MODES = ("full", "nosin", "nobcast", "noagg", "gemmonly", "demb")
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@functools.cache
+def phase_consts(num_freqs: int, lanes: int) -> np.ndarray:
+    """Per-axis phase-frequency rows ``F[s, l]``, s in {x, y, z}, l < lanes.
+
+    Lane ``l < 3 nf`` holds ``(s, m) = divmod(l, nf)`` of the sin half, lanes
+    ``[3 nf, 6 nf)`` repeat the layout for the cos half (the space-major
+    ``concat(sin, cos)`` of ``sinusoids_embedding``), lanes ``>= 6 nf`` are
+    0. The constants are ``2 pi m`` rounded once from double, as the JAX
+    package's Pallas kernels take them (``ops/fused_edge.py:57``).
+    """
+    fx = np.zeros((3, lanes), np.float32)
+    for half in (0, 3 * num_freqs):
+        for s in range(3):
+            for m in range(num_freqs):
+                fx[s, half + s * num_freqs + m] = 2.0 * math.pi * m
+    return fx
+
+
+@functools.cache
+def _phase_table(num_freqs: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(phase_consts(num_freqs, 6 * num_freqs)).to(device)
+
+
+def phase_embedding(
+    frac_coords: torch.Tensor, fmat: torch.Tensor, n_sin: int, *, sincos: bool = True
+) -> torch.Tensor:
+    """``[B, A, A, lanes]`` f32: the phases ``ph = fd . fmat[:, l]`` of
+    ``fd = (x_j - x_i) mod 1``, and ``sin(ph)`` on lanes ``< n_sin``,
+    ``cos(ph)`` on the others (or the raw phases when ``sincos`` is off)."""
+    fr = frac_coords.to(torch.float32)
+    fd = fr[:, None, :, :] - fr[:, :, None, :]
+    fd = fd - torch.floor(fd)
+    fmat = fmat.to(torch.float32)
+    ph = fd[..., 0:1] * fmat[0] + fd[..., 1:2] * fmat[1] + fd[..., 2:3] * fmat[2]
+    if not sincos:
+        return ph
+    lane = torch.arange(fmat.shape[1], device=ph.device)
+    return torch.where(lane < n_sin, torch.sin(ph), torch.cos(ph))
+
+
+def edge_chain_plain(
+    term_i: torch.Tensor,  # [B, A, H] compute dtype
+    term_j: torch.Tensor,  # [B, A, H]
+    emb: torch.Tensor,  # [B, A, A, lanes]
+    ui: torch.Tensor,  # [B, A, 1] f32
+    uj: torch.Tensor,  # [B, A, 1] f32
+    wd: torch.Tensor,  # [lanes, H]
+    w1: torch.Tensor,  # [H, H]
+    b1: torch.Tensor,  # [H] or [1, H]
+    *,
+    bcast: bool = True,
+    agg: bool = True,
+) -> torch.Tensor:
+    """The 4-D edge kernels' function from the embedding on, in plain
+    PyTorch: ``s = silu(silu(emb @ w_d [+ t_i + t_j]) @ w_1 + b_1)``, then
+    ``u_i sum_j s_ij u_j`` (``agg``) or the j-slice ``u_i s_{i, 0}``.
+
+    The products run in f32 on operands rounded to the compute dtype (the
+    dtype of ``term_i``), as the kernel computes them; the elementwise chain
+    and the j-sum stay in f32.
+    """
+    cdt = term_i.dtype
+    f32 = torch.float32
+    e = emb.to(cdt).to(f32) @ wd.to(f32)
+    if bcast:
+        e = e + term_i.to(f32)[:, :, None, :] + term_j.to(f32)[:, None, :, :]
+    e = torch.nn.functional.silu(e).to(cdt).to(f32)
+    s = torch.nn.functional.silu(e @ w1.to(f32) + b1.to(f32).reshape(-1))
+    if agg:
+        out = torch.sum(s * uj.to(f32)[:, None, :, :], dim=2)  # [B, A, H]
+    else:
+        out = s[:, :, 0, :]
+    return (out * ui.to(f32)).to(cdt)
 
 
 def fused_edge_chain_plain(
@@ -45,25 +133,70 @@ def fused_edge_chain_plain(
     num_freqs: int = 10,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the decomposed edge math of
-    ``matinvent_tpu/models/cspnet.py:174-195``.
+    ``matinvent_tpu/models/cspnet.py:174-195``, with the kernel's phase
+    constants (``phase_consts``)."""
+    fmat = _phase_table(num_freqs, frac_coords.device)
+    emb = phase_embedding(frac_coords, fmat, 3 * num_freqs)
+    return edge_chain_plain(term_i, term_j, emb, ui, uj, wd, w1, b1)
 
-    The products run in f32 on operands rounded to the compute dtype (the
-    dtype of ``term_i``), as the kernel computes them; the elementwise chain
-    and the j-sum stay in f32.
-    """
-    from matinvent_tpu_torch.models.cspnet import sinusoids_embedding
 
-    cdt = term_i.dtype
-    f32 = torch.float32
-    fr = frac_coords.to(f32)
-    fd = (fr[:, None, :, :] - fr[:, :, None, :]) % 1.0  # [B, A, A, 3]
-    emb = sinusoids_embedding(fd, num_freqs).to(cdt).to(f32)
-    e = emb @ wd.to(f32)
-    e = e + term_i.to(f32)[:, :, None, :] + term_j.to(f32)[:, None, :, :]
-    e = torch.nn.functional.silu(e).to(cdt).to(f32)
-    s = torch.nn.functional.silu(e @ w1.to(f32) + b1.to(f32))
-    agg = torch.sum(s * uj.to(f32)[:, None, :, :], dim=2)  # [B, A, H]
-    return (agg * ui.to(f32)).to(cdt)
+def check_tensors(expect, device: torch.device) -> None:
+    """Raise unless each ``(name, tensor, shape, dtype)`` of ``expect`` has
+    that shape and dtype, lies on ``device``, is contiguous and 16-byte
+    aligned: what the CUDA kernels take."""
+    for name, t, shape, dtype in expect:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: dtype {t.dtype} != {dtype}")
+        if t.device != device:
+            raise ValueError(f"{name}: on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"tensors on {device}, current CUDA device is {torch.cuda.current_device()}"
+        )
+
+
+@functools.cache
+def _launch_fn():
+    """The kernels' C launch function, built and bound on first use."""
+    from matinvent_tpu_torch.csrc.build import build
+
+    fn = build("fused_edge").lib.fused_edge_launch
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_edge_kernel(
+    mode: str, term_i, term_j, frac_coords, fmat, de, ui, uj, wd, w1, b1, *, n_sin: int
+) -> torch.Tensor:
+    """Launch ``csrc/fused_edge.cu`` in ``mode`` (one of ``MODES``) on tensors
+    the caller has checked; ``frac_coords``/``fmat`` or ``de`` may be None
+    where the mode does not read them. The j-slice modes keep row j = 0,
+    passed to the kernel at run time so that it computes every row's
+    products. Returns the ``[B, A, H]`` output."""
+    B, A, H = term_i.shape
+    out = torch.empty_like(term_i)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _launch_fn()(
+        MODES.index(mode), ptr(term_i), ptr(term_j), ptr(frac_coords), ptr(fmat),
+        ptr(de), ptr(ui), ptr(uj), ptr(wd), ptr(w1), ptr(b1), ptr(out),
+        B, A, H, wd.shape[0], n_sin, 0, _DTYPE_CODE[term_i.dtype],
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_edge_launch ({mode}) failed: cudaError {err}")
+    return out
 
 
 def _check(term_i, term_j, frac_coords, ui, uj, wd, w1, b1, num_freqs):
@@ -79,7 +212,7 @@ def _check(term_i, term_j, frac_coords, ui, uj, wd, w1, b1, num_freqs):
         raise ValueError(f"atoms per crystal must be in 1..{_MAX_ATOMS}, got {A}")
     if not 1 <= 6 * num_freqs <= _MAX_LANES:
         raise ValueError(f"num_freqs must be in 1..{_MAX_LANES // 6}, got {num_freqs}")
-    expect = [
+    check_tensors([
         ("term_i", term_i, (B, A, H), cdt),
         ("term_j", term_j, (B, A, H), cdt),
         ("frac_coords", frac_coords, (B, A, 3), torch.float32),
@@ -88,30 +221,7 @@ def _check(term_i, term_j, frac_coords, ui, uj, wd, w1, b1, num_freqs):
         ("wd", wd, (6 * num_freqs, H), cdt),
         ("w1", w1, (H, H), cdt),
         ("b1", b1, (H,), cdt),
-    ]
-    dev = term_i.device
-    for name, t, shape, dtype in expect:
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: dtype {t.dtype} != {dtype}")
-        if t.device != dev:
-            raise ValueError(f"{name}: on {t.device}, term_i on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-
-
-@functools.cache
-def _launch_fn():
-    """The kernel's C launch function, built and bound on first use."""
-    from matinvent_tpu_torch.csrc.build import build
-
-    fn = build("fused_edge").lib.fused_edge_chain_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    ], term_i.device)
 
 
 def fused_edge_chain(
@@ -138,25 +248,11 @@ def fused_edge_chain(
         return fused_edge_chain_plain(
             term_i, term_j, frac_coords, ui, uj, wd, w1, b1, num_freqs=num_freqs
         )
-    if term_i.device.type != "cuda":
-        raise ValueError(f"unsupported device {term_i.device}")
     _check(term_i, term_j, frac_coords, ui, uj, wd, w1, b1, num_freqs)
-    if term_i.device.index != torch.cuda.current_device():
-        raise ValueError(
-            f"tensors on {term_i.device}, current CUDA device is "
-            f"{torch.cuda.current_device()}"
-        )
-    B, A, H = term_i.shape
-    out = torch.empty_like(term_i)
-    err = _launch_fn()(
-        term_i.data_ptr(), term_j.data_ptr(), frac_coords.data_ptr(),
-        ui.data_ptr(), uj.data_ptr(), wd.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), out.data_ptr(),
-        B, A, H, num_freqs, _DTYPE_CODE[term_i.dtype],
-        torch.cuda.current_stream().cuda_stream,
+    out = launch_edge_kernel(
+        "full", term_i, term_j, frac_coords, _phase_table(num_freqs, term_i.device),
+        None, ui, uj, wd, w1, b1, n_sin=3 * num_freqs,
     )
-    if err != 0:
-        raise RuntimeError(f"fused_edge_chain launch failed: cudaError {err}")
     fused_edge_chain.launches += 1
     return out
 

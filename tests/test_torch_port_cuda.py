@@ -1,4 +1,4 @@
-"""Card-only tests of the port's CUDA kernel (marker ``cuda``).
+"""Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
 They skip without a CUDA card. On the card machine, which has no JAX, run
 them without the repository's conftest (it imports JAX):
@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from matinvent_tpu_torch.experiments import fused_edge_ab, fused_edge_flat
 from matinvent_tpu_torch.models.mattergen.diffusion import (
     MatterGenConfig,
     MatterGenDiffusion,
@@ -124,3 +125,78 @@ def test_sampling_on_card_launches_the_kernel():
     for o, cap in zip(outs, (4, 8)):
         assert o.frac_coords.shape[1] == cap
         assert torch.isfinite(o.lattice).all()
+
+
+# (crystals, cap) of the harness kernels: odd shapes, a single atom, the
+# 64-atom limit and the harnesses' full width (bench.py's dominant bucket)
+HARNESS_SHAPES = [(7, 13), (3, 1), (2, 64), (203, 20)]
+
+
+def _close(out, ref, mask=None):
+    scale = max(1.0, ref.float().abs().max().item())
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[out.dtype] * scale
+    if mask is not None:
+        assert bool((out[~mask] == 0).all())
+
+
+def _mask(na, atoms):
+    return torch.tensor(np.arange(atoms)[None, :] < na[:, None], device="cuda")
+
+
+@pytest.mark.parametrize("mode", fused_edge_ab.ABLATIONS)
+@pytest.mark.parametrize("crystals,atoms", HARNESS_SHAPES)
+def test_edge_variant_matches_plain(mode, crystals, atoms):
+    _need_card()
+    args, na = fused_edge_ab.make_inputs(np.random.default_rng(atoms), crystals, atoms, "cuda")
+    before = fused_edge_ab.edge_variant.launches
+    out = fused_edge_ab.edge_variant(mode, *args)
+    torch.cuda.synchronize()
+    assert fused_edge_ab.edge_variant.launches == before + 1
+    _close(out, fused_edge_ab.edge_variant_plain(mode, *args), _mask(na, atoms))
+
+
+@pytest.mark.parametrize("crystals,atoms", HARNESS_SHAPES)
+def test_flat_and_demb_match_plain(crystals, atoms):
+    _need_card()
+    flat, demb, na = fused_edge_flat.make_inputs(
+        np.random.default_rng(atoms), crystals, atoms, "cuda"
+    )
+    n_flat, n_demb = fused_edge_flat.flat_edge_mlp.launches, fused_edge_flat.demb_edge.launches
+    out_flat = fused_edge_flat.flat_edge_mlp(*flat)
+    out_demb = fused_edge_flat.demb_edge(*demb)
+    torch.cuda.synchronize()
+    assert fused_edge_flat.flat_edge_mlp.launches == n_flat + 1
+    assert fused_edge_flat.demb_edge.launches == n_demb + 1
+    _close(out_flat, fused_edge_flat.flat_edge_mlp_plain(*flat))
+    _close(out_demb, fused_edge_flat.demb_edge_plain(*demb), _mask(na, atoms))
+
+
+def test_full_variant_is_the_sampler_kernel_on_card():
+    # mode "full" launches the sampler's instance: with w_d's rows past 6 nf
+    # zero, its dead lanes (cos 0 = 1) add exact zeros, so the two agree
+    # bit for bit
+    _need_card()
+    args, _ = fused_edge_ab.make_inputs(np.random.default_rng(0), 9, 20, "cuda")
+    ti, tj, fr, ui, uj, fmat, wd, w1, b1 = args
+    wd = wd.clone()
+    wd[60:] = 0
+    out = fused_edge_ab.edge_variant("full", ti, tj, fr, ui, uj, fmat, wd, w1, b1)
+    ref = fused_edge_chain(ti, tj, fr, ui, uj, wd[:60].contiguous(), w1, b1[0].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def test_harness_kernels_reject_what_they_do_not_take():
+    _need_card()
+    args, _ = fused_edge_ab.make_inputs(np.random.default_rng(0), 2, 4, "cuda")
+    with pytest.raises(ValueError):  # the ablations exist in bf16 only
+        fused_edge_ab.edge_variant("nosin", args[0].float(), *args[1:])
+    with pytest.raises(ValueError):  # unknown mode
+        fused_edge_ab.edge_variant("nope", *args)
+    flat, demb, _ = fused_edge_flat.make_inputs(np.random.default_rng(0), 2, 4, "cuda")
+    with pytest.raises(ValueError):  # rows of ts and emb differ
+        fused_edge_flat.flat_edge_mlp(flat[0][:-1].contiguous(), *flat[1:])
+    with pytest.raises(ValueError):  # embedding of the wrong cap
+        fused_edge_flat.demb_edge(demb[0], demb[1], demb[2][:, :3].contiguous(), *demb[3:])

@@ -7,6 +7,8 @@ runs its plain version, since the tensors lie on the CPU.
 """
 from __future__ import annotations
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from matinvent_tpu.ops.segment import graph_mean as jax_graph_mean
 from matinvent_tpu.ops.segment import masked_mean as jax_masked_mean
 from matinvent_tpu.ops.wrapped_normal import d_log_p_wrapped_normal as jax_dlogp
 from matinvent_tpu_torch.chem.validity import structure_validity
+from matinvent_tpu_torch.csrc.build import CSRC, source_digest
 from matinvent_tpu_torch.device import resolve_device
 from matinvent_tpu_torch.models.batch import CrystalBatch
 from matinvent_tpu_torch.models.cspnet import sinusoids_embedding
@@ -198,3 +201,25 @@ def test_device_helper():
             resolve_device()
         with pytest.raises(RuntimeError):
             MatterGenDiffusion(MatterGenConfig(hidden_dim=16, num_layers=1))
+
+
+@pytest.mark.parametrize("name", ["fused_edge", "edge_flat"])
+def test_build_digest_covers_included_headers(name, tmp_path):
+    copy = tmp_path / "csrc"
+    shutil.copytree(CSRC, copy, ignore=shutil.ignore_patterns("__pycache__", "*.py"))
+    digest = source_digest(name, copy)
+    assert digest == source_digest(name, CSRC)  # where csrc lies does not count
+    other = copy / ("edge_flat.cu" if name == "fused_edge" else "fused_edge.cu")
+    other.write_text(other.read_text() + "\n// a source this one does not include\n")
+    assert source_digest(name, copy) == digest
+    header = copy / "edge_tiles.cuh"
+    assert f'#include "{header.name}"' in (copy / f"{name}.cu").read_text()
+    header.write_text(header.read_text() + "\n// an edit of the included header\n")
+    edited = source_digest(name, copy)
+    assert edited != digest
+    # a header included only through another header counts too
+    (copy / "deeper.cuh").write_text("#pragma once\n")
+    header.write_text('#include "deeper.cuh"\n' + header.read_text())
+    nested = source_digest(name, copy)
+    (copy / "deeper.cuh").write_text("#pragma once\n// edited\n")
+    assert source_digest(name, copy) not in (nested, edited, digest)
