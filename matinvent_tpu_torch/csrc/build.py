@@ -4,6 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into ``matinvent_tpu_torch/_build/lib<name>-<hash>.so``, where the hash
 covers the source, every ``csrc/`` header it includes (directly or through
 another header) and the flags, so an edited source or header is rebuilt.
+A build with preprocessor defines (``build(name, ("FLAG",))``, for
+instrumented variants) is a library of its own.
 Threads may build different sources at the same time: nvcc runs outside
 the lock. PyTorch's headers are not included and
 ``torch.utils.cpp_extension`` is not used: the build takes seconds. A
@@ -37,7 +39,7 @@ NVCC_FLAGS = (
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()  # guards _loaded
-_loaded: dict[str, "Built"] = {}
+_loaded: dict[tuple[str, tuple[str, ...]], "Built"] = {}
 
 
 class Built:
@@ -62,12 +64,12 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def source_digest(name: str, csrc: Path = CSRC) -> str:
+def source_digest(name: str, csrc: Path = CSRC, flags: tuple[str, ...] = NVCC_FLAGS) -> str:
     """Hash of ``csrc/<name>.cu``, of every file of ``csrc`` that it
     ``#include "..."``s (followed through headers, each file once) and of
     the flags. A quoted include that is not in ``csrc`` is left to nvcc."""
     root = csrc.resolve()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags).encode())
     todo, seen = [root / f"{name}.cu"], set()
     while todo:
         path = todo.pop(0)
@@ -83,13 +85,16 @@ def source_digest(name: str, csrc: Path = CSRC) -> str:
     return h.hexdigest()[:16]
 
 
-def build(name: str) -> Built:
-    """Compile (once) and load ``csrc/<name>.cu``."""
+def build(name: str, defines: tuple[str, ...] = ()) -> Built:
+    """Compile (once) and load ``csrc/<name>.cu``, with ``-D`` of each of
+    ``defines``."""
+    key = (name, defines)
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
+        if key in _loaded:
+            return _loaded[key]
     src = CSRC / f"{name}.cu"
-    digest = source_digest(name)
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    digest = source_digest(name, flags=flags)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = lib_path.with_suffix(".log")
@@ -100,7 +105,7 @@ def build(name: str) -> Built:
         os.close(fd)
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+            [nvcc, *flags, "-o", tmp, str(src)],
             capture_output=True,
             text=True,
         )
@@ -117,4 +122,4 @@ def build(name: str) -> Built:
     log = log_path.read_text() if log_path.exists() else ""
     built = Built(ctypes.CDLL(str(lib_path)), lib_path, log, seconds)
     with _lock:
-        return _loaded.setdefault(name, built)
+        return _loaded.setdefault(key, built)

@@ -6,20 +6,21 @@
 //     e   = silu(emb @ w_d + ts)          emb [R, lanes], ts [R, H]
 //     out = silu(e @ w_1 + b_1)           [R, H]
 //
-// in the compute dtype T with f32 accumulation and an f32 elementwise chain;
-// e is rounded to T before the second product. It is the "flattened form"
-// of the fused edge kernel (fused_edge.cu): the same two products without
-// the in-kernel embedding, the broadcast adds and the j-reduction, which
-// stay outside.
+// in bf16 with f32 accumulation and an f32 elementwise chain; e is rounded
+// to bf16 before the second product. It is the "flattened form" of the
+// fused edge kernel (fused_edge.cu): the same two products without the
+// in-kernel embedding, the broadcast adds and the j-reduction, which stay
+// outside.
 //
-// What bounds it: at the harness's shape (R = 81,200, lanes = 64, H = 256,
-// bf16) the card's tensor cores would need 13.3 GFLOP / 989 TFLOP/s = 13 us
-// against 94 MB of rows in and out at 3.35 TB/s = 28 us, so the function is
-// bound by bytes; this kernel uses FP32 FMAs and is bound by their rate.
-// Design, shared with fused_edge.cu (edge_tiles.cuh): one block of 256
-// threads per 64 rows; the rows of emb and then e sit k-major in shared
-// memory, w_d and w_1 stream from L2 in 16-row tiles, and e never reaches
-// device memory. The last block's rows past R are neither read nor written.
+// What bounds it: at the harness's shape (R = 81,200, lanes = 64, H = 256)
+// the tensor cores need 13.3 GFLOP / 989 TFLOP/s = 13 us against 94 MB of
+// rows in and out at 3.35 TB/s = 28 us, so the function is bound by bytes.
+// Design, on fused_edge.cu's tiles (edge_tiles.cuh, bf16 route): persistent
+// blocks of 256 threads keep w_d and w_1 resident in shared memory (200 KB
+// with the emb and e tiles, one block per SM) and walk the 64-row tiles;
+// both products run as bf16 mma.m16n8k16, e never reaches device memory,
+// and the output is stored from the accumulator fragments. Rows past R are
+// neither read nor written.
 
 #include "edge_tiles.cuh"
 
@@ -27,76 +28,87 @@ namespace {
 
 using namespace edge_tiles;
 
-template <typename T, int H>
-__global__ void __launch_bounds__(kThreads, 2)
-    edge_flat_kernel(const T* __restrict__ emb, const T* __restrict__ ts,
-                     const T* __restrict__ wd, const T* __restrict__ w1,
-                     const T* __restrict__ b1, T* __restrict__ out, int R,
-                     int lanes) {
-  constexpr int RM = H / 32;
-  constexpr int TX = H / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* opnd = reinterpret_cast<float*>(smem_raw);  // emb, then e
-  T* btile = reinterpret_cast<T*>(smem_raw + size_t(H) * kLda * 4);
-
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
+    edge_flat_kernel(const __nv_bfloat16* __restrict__ emb,
+                     const __nv_bfloat16* __restrict__ ts,
+                     const __nv_bfloat16* __restrict__ wd,
+                     const __nv_bfloat16* __restrict__ w1,
+                     const __nv_bfloat16* __restrict__ b1,
+                     __nv_bfloat16* __restrict__ out, int R, int lanes,
+                     int n_tiles) {
+  using G = Geo<H>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ float b1s[H];
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int first = static_cast<int>(blockIdx.x) * kRows;
-  const int rows = min(kRows, R - first);
-  const size_t r0 = static_cast<size_t>(first);
-  const int Kd = ((lanes + kKt - 1) / kKt) * kKt;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int Kd = ((lanes + 15) / 16) * 16;
 
-  for (int idx = tid; idx < kRows * Kd; idx += kThreads) {
-    const int r = idx / Kd;
-    const int l = idx % Kd;
-    float v = 0.0f;
-    if (r < rows && l < lanes) v = to_float(emb[(r0 + r) * lanes + l]);
-    opnd[l * kLda + r] = v;
-  }
-  __syncthreads();
+  Bf16Tiles<H> tiles(smem_raw);
+  tiles.prepare(wd, w1, Kd, lanes, tid);
+  for (int c = tid; c < H; c += kThreads) b1s[c] = to_float(b1[c]);
 
-  float acc[RM][8];
-  gemm_block<T, H>(opnd, wd, Kd, lanes, btile, acc, tid);
-
-  const int c0 = tx * 4;
-  const int c1 = H / 2 + tx * 4;
-  float e[RM][8];
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const size_t first = static_cast<size_t>(tile) * kRows;
+    const int rows = min(kRows, static_cast<int>(R - first));
+    // this tile's rows of ts, read by the first epilogue, on their way to L2
+    prefetch<false>(ts + first * H, size_t(rows) * H * 2, tid);
+    // the previous tile's products are done with emb and e
+    __syncthreads();
+    const int chunks = Kd / 8;
+    for (int idx = tid; idx < kRows * chunks; idx += kThreads) {
+      const int r = idx / chunks;
+      const int l0 = (idx % chunks) * 8;
+      float v[8];
+      if (r < rows) {
+        load_lanes8(emb + (first + r) * lanes, l0, lanes, v);
+      } else {
 #pragma unroll
-  for (int m = 0; m < RM; ++m) {
-    const int r = ty * RM + m;
-    if (r < rows) {
-      const T* tp = ts + (r0 + r) * H;
-      const float4 p0 = load4(tp + c0);
-      const float4 p1 = load4(tp + c1);
-      const float t[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-#pragma unroll
-      for (int n = 0; n < 8; ++n) e[m][n] = round_to<T>(silu(acc[m][n] + t[n]));
-    } else {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) e[m][n] = 0.0f;
+        for (int k = 0; k < 8; ++k) v[k] = 0.0f;
+      }
+      tiles.store_emb8(r, l0 / 8, v);
     }
-  }
-  // gemm_block ended on a barrier, so emb is no longer read
-  store_tile_kmajor<H>(opnd, e, tid);
-  __syncthreads();
+    __syncthreads();
 
-  gemm_block<T, H>(opnd, w1, H, H, btile, acc, tid);
-
-  const float4 v0 = load4(b1 + c0);
-  const float4 v1 = load4(b1 + c1);
-  const float bias[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    Acc<H> acc;
+    tiles.gemm1(Kd, acc, warp, lane, tid);
+    // e = silu(emb @ w_d + ts), rounded to bf16; 0 past R. Per fragment
+    // half the rows of ts are loaded first, all together
+    {
+      const int rbase = (warp / G::WARPS_N) * G::MI * 16 + lane / 4;
+      const int cbase = (warp % G::WARPS_N) * G::NI * 8 + 2 * (lane % 4);
 #pragma unroll
-  for (int m = 0; m < RM; ++m) {
-    const int r = ty * RM + m;
-    if (r < rows) {
-      float s[8];
+      for (int mi = 0; mi < G::MI; ++mi) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) s[n] = silu(acc[m][n] + bias[n]);
-      T* op = out + (r0 + r) * H;
-      store4(op + c0, s[0], s[1], s[2], s[3]);
-      store4(op + c1, s[4], s[5], s[6], s[7]);
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + mi * 16 + h * 8;
+          const bool live = r < rows;
+          // a row past R reads the tile's first row and discards it
+          const __nv_bfloat16* tp = ts + (first + (live ? r : 0)) * H + cbase;
+          float2 t[G::NI];
+#pragma unroll
+          for (int ni = 0; ni < G::NI; ++ni) t[ni] = load2(tp + ni * 8);
+#pragma unroll
+          for (int ni = 0; ni < G::NI; ++ni) {
+            const float* v = acc[mi][ni] + 2 * h;
+            tiles.store_e(
+                r, cbase + ni * 8,
+                live ? round_to<__nv_bfloat16>(silu(v[0] + t[ni].x)) : 0.0f,
+                live ? round_to<__nv_bfloat16>(silu(v[1] + t[ni].y)) : 0.0f);
+          }
+        }
+      }
     }
+    __syncthreads();
+
+    tiles.gemm2(acc, warp, lane, tid);
+    for_each_acc<H>(acc, warp, lane, [&](int r, int c, float v0, float v1) {
+      if (r < rows) {
+        store2(out + (first + r) * H + c, silu(v0 + b1s[c]),
+               silu(v1 + b1s[c + 1]));
+      }
+    });
   }
 }
 
@@ -114,16 +126,27 @@ extern "C" int edge_flat_launch(const void* emb, const void* ts,
   }
   using T = __nv_bfloat16;
   constexpr int kH = 256;
-  constexpr size_t smem = size_t(kH) * kLda * 4 + tile_bytes<T, kH>();
-  auto* kernel = edge_flat_kernel<T, kH>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (R + kRows - 1) / kRows;
-  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  constexpr size_t smem = Bf16Tiles<kH>::kBytes;
+  auto* kernel = edge_flat_kernel<kH>;
+  static int slots = 0;
+  if (slots == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    slots = resident_blocks(kernel, smem);
+    if (slots == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const int n_tiles = (R + kRows - 1) / kRows;
+  const int grid = n_tiles < slots ? n_tiles : slots;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(emb), static_cast<const T*>(ts),
       static_cast<const T*>(wd), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<T*>(out), R, lanes);
+      static_cast<const T*>(b1), static_cast<T*>(out), R, lanes, n_tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory (bytes) of one block of the H = 256 bf16 instance.
+extern "C" int edge_flat_smem_bytes() {
+  return static_cast<int>(Bf16Tiles<256>::kBytes);
 }

@@ -30,18 +30,29 @@
 // The j-slice index jsel is a kernel argument, so every row's products
 // still run when only the rows j = jsel reach the output.
 //
-// What bounds it: at the sampler's shapes (H = 256, caps A <= 20) each
-// crystal's A*A edge rows cost 2*(64*H + H*H) flops against 3*A*H elements of
-// node terms and output, so the work is far above the card's ridge point and
-// the kernel is bound by arithmetic: the FP32 FMA rate here, since no tensor
-// cores are used yet. The design keeps every [A*A, H] intermediate out of
-// device memory:
-//  * one block of 256 threads owns one crystal and a run of whole rows i
-//    (floor(64 / A) of them, i.e. at most 64 edge rows), so the j-reduction
-//    never crosses blocks and needs no atomics;
-//  * the embedding and e live in shared memory, k-major, and w_d and w_1
-//    stream from L2 (edge_tiles.cuh);
-//  * 2 blocks fit on one SM (about 102 KB of shared memory each).
+// What bounds it: each crystal's A*A edge rows cost 2*(64*H + H*H) flops
+// against 3*A*H elements of node terms and output, so the work is far above
+// the card's ridge point and the kernel is bound by the tensor cores. The
+// design (edge_tiles.cuh for the products):
+//  * the B*A rows (b, i) are packed across crystals into 64-row tiles of
+//    rows_i = floor(64 / A) whole rows i each (60 live rows of 64 at
+//    A = 20), so the j-sum of a row i never leaves its tile;
+//  * persistent blocks of 256 threads (as many as fit on the SMs) walk the
+//    tiles; bf16 blocks keep both weights resident in shared memory and
+//    run both products as bf16 mma.m16n8k16; f32 blocks run them as 3xTF32
+//    mma.m16n8k8 with the weights streamed from L2 through a cp.async ring;
+//  * fd is computed once per edge row into shared memory; emb and e live in
+//    shared memory in the compute dtype and never reach device memory;
+//  * the j-sum stages 32 rows of f32 s * u_j at a time in shared memory
+//    (over the emb and e tiles, which the products no longer read) and each
+//    thread sums one column down the rows, writing out_i when row i's run of
+//    A rows ends: the f32 sum is taken in another order than the plain
+//    version's, but in the same order on every run.
+// Shared memory per block at H = 256: bf16 200 KB dynamic (w_d 64x256 32 KB,
+// w_1 256x256 128 KB, emb 64x64 8 KB, e 64x256 32 KB; emb and e then hold
+// the j-sum's 32x264 f32 staging rows)
+// plus 3.3 KB static, one block per SM; f32 148 KB dynamic (emb 64x68 f32
+// 17 KB, e 64x260 f32 65 KB, ring 4 x 16x264 f32 66 KB) plus 3.3 KB static.
 // The padded rows of a crystal (u_i = 0) come out as exactly 0.
 //
 // The launch function has a plain C interface (raw pointers, the stream),
@@ -53,6 +64,28 @@
 namespace {
 
 using namespace edge_tiles;
+
+// Cycle counts of the kernel's phases in block 0 (thread 0's clock after a
+// barrier that closes each phase), summed over its tiles, for
+// matinvent_tpu_torch/experiments/edge_cycles.py. Compiled in only with
+// -DFUSED_EDGE_CYCLES, which adds the barriers; the kernels that sample
+// have neither.
+#ifdef FUSED_EDGE_CYCLES
+__device__ unsigned long long edge_cycles[8];
+#define EDGE_PHASE(k)                                                 \
+  do {                                                                \
+    __syncthreads();                                                  \
+    if (threadIdx.x == 0 && blockIdx.x == 0) {                        \
+      const long long now = clock64();                                \
+      edge_cycles[k] += static_cast<unsigned long long>(now - clk);   \
+      clk = now;                                                      \
+    }                                                                 \
+  } while (0)
+#else
+#define EDGE_PHASE(k) \
+  do {                \
+  } while (0)
+#endif
 
 // Where a block's embedding lanes come from.
 enum class Emb {
@@ -79,191 +112,262 @@ struct EdgeArgs {
   int B, A, lanes, n_sin, jsel;
 };
 
-template <int H>
-__host__ __device__ constexpr size_t operand_bytes() {
-  // max of the embedding [kMaxLanes][kLda], e [H][kLda] and the
-  // reduction buffer [kRows][H + 4], all f32
-  constexpr size_t emb = size_t(kMaxLanes) * kLda * 4;
-  constexpr size_t e = size_t(H) * kLda * 4;
-  constexpr size_t red = size_t(kRows) * (H + 4) * 4;
-  constexpr size_t m = emb > e ? emb : e;
-  return m > red ? m : red;
-}
-
 template <typename T, int H, Emb E, bool kBcast, bool kAgg>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
     fused_edge_kernel(const T* __restrict__ ti, const T* __restrict__ tj,
                       const float* __restrict__ fr,
                       const float* __restrict__ fmat,
                       const T* __restrict__ de, const float* __restrict__ ui,
                       const float* __restrict__ uj, const T* __restrict__ wd,
                       const T* __restrict__ w1, const T* __restrict__ b1,
-                      T* __restrict__ out, int A, int lanes, int n_sin,
-                      int jsel, int rows_i, int n_chunks) {
-  constexpr int RM = H / 32;
-  constexpr int TX = H / 8;
-  constexpr int kLdr = H + 4;  // row stride of the reduction buffer
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // one f32 region, used in turn as the embedding, as e and as s * u_j
-  float* opnd = reinterpret_cast<float*>(smem_raw);
-  T* btile = reinterpret_cast<T*>(smem_raw + operand_bytes<H>());
-  __shared__ float frs[kRows][3];       // coords of the crystal's atoms
-  __shared__ float fms[3][kMaxLanes];   // fmat
+                      T* __restrict__ out, int B, int A, int lanes, int n_sin,
+                      int jsel, int rows_i, int n_tiles) {
+  using Tiles = typename TilesOf<T, H>::type;
+  using G = Geo<H>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ float fd_s[kRows][3];     // fd of each edge row
+  __shared__ float fms[3][kMaxLanes];  // fmat
+  __shared__ int ti_row[kRows];        // row (b, i) of term_i, -1 if dead
+  __shared__ int tj_row[kRows];        // row (b, j) of term_j
+  __shared__ float w_row[kRows];       // weight of the row in the j-sum
+  __shared__ float b1s[H];
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int b = blockIdx.x / n_chunks;
-  const int i0 = (blockIdx.x % n_chunks) * rows_i;
-  const int n_i = min(rows_i, A - i0);
-  const int rows = n_i * A;  // live edge rows of this block
-  const int Kd = ((lanes + kKt - 1) / kKt) * kKt;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int Kd = ((lanes + 15) / 16) * 16;
+  const int n_q = B * A;  // rows (b, i)
 
-  // the embedding, k-major: opnd[l * kLda + r]; lanes past `lanes` are 0
-  // (their weight rows are zero-filled)
-  if constexpr (E == Emb::kRead) {
-    for (int idx = tid; idx < kRows * Kd; idx += kThreads) {
-      const int r = idx / Kd;
-      const int l = idx % Kd;
-      float v = 0.0f;
-      if (r < rows && l < lanes) {
-        const int i = i0 + r / A;
-        const int j = r % A;
-        v = to_float(de[((static_cast<size_t>(b) * A + i) * A + j) * lanes + l]);
-      }
-      opnd[l * kLda + r] = v;
-    }
-  } else {
-    for (int idx = tid; idx < A * 3; idx += kThreads) {
-      frs[idx / 3][idx % 3] = fr[static_cast<size_t>(b) * A * 3 + idx];
-    }
+#ifdef FUSED_EDGE_CYCLES
+  long long clk = clock64();
+#endif
+  Tiles tiles(smem_raw);
+  tiles.prepare(wd, w1, Kd, lanes, tid);
+  for (int c = tid; c < H; c += kThreads) b1s[c] = to_float(b1[c]);
+  if constexpr (E != Emb::kRead) {
     for (int idx = tid; idx < 3 * lanes; idx += kThreads) {
       fms[idx / lanes][idx % lanes] = fmat[idx];
     }
+  }
+
+  EDGE_PHASE(0);  // weights resident (bf16), constants
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int q0 = tile * rows_i;
+    const int n_i = min(rows_i, n_q - q0);
+    if constexpr (kBcast) {
+      // the rows (b, i) and (b, j) of term_i and term_j this tile reads, so
+      // that the first epilogue finds them in L1
+      const int qb = (q0 / A) * A;
+      const int qe = ((q0 + n_i - 1) / A + 1) * A;
+      prefetch<true>(ti + static_cast<size_t>(q0) * H,
+                     size_t(n_i) * H * sizeof(T), tid);
+      prefetch<true>(tj + static_cast<size_t>(qb) * H,
+                     size_t(qe - qb) * H * sizeof(T), tid);
+    }
+    // the previous tile's readers of the row tables and the j-sum are done
     __syncthreads();
-    for (int idx = tid; idx < Kd * kRows; idx += kThreads) {
-      const int l = idx / kRows;
-      const int r = idx % kRows;
-      float v = 0.0f;
-      if (r < rows && l < lanes) {
-        const int i = i0 + r / A;
-        const int j = r % A;
-        float fd[3];
+    if (tid < kRows) {
+      const int r = tid;
+      int qi = -1, qj = 0;
+      float w = 0.0f;
+      if (r < n_i * A) {
+        const int il = r / A;
+        const int j = r - il * A;
+        qi = q0 + il;
+        qj = (qi / A) * A + j;
+        w = kAgg ? uj[qj] : (j == jsel ? 1.0f : 0.0f);
+        if constexpr (E != Emb::kRead) {
 #pragma unroll
-        for (int s = 0; s < 3; ++s) {
-          fd[s] = frs[j][s] - frs[i][s];
-          fd[s] = fd[s] - floorf(fd[s]);
-        }
-        // rounded as written (no contraction), as the plain version sums
-        const float ph = __fadd_rn(
-            __fadd_rn(__fmul_rn(fd[0], fms[0][l]), __fmul_rn(fd[1], fms[1][l])),
-            __fmul_rn(fd[2], fms[2][l]));
-        if constexpr (E == Emb::kSinCos) {
-          v = l < n_sin ? sinf(ph) : cosf(ph);
-        } else {
-          v = ph;
+          for (int s = 0; s < 3; ++s) {
+            const float d = fr[qj * 3 + s] - fr[qi * 3 + s];
+            fd_s[r][s] = d - floorf(d);
+          }
         }
       }
-      opnd[l * kLda + r] = round_to<T>(v);
+      ti_row[r] = qi;
+      tj_row[r] = qj;
+      w_row[r] = w;
     }
-  }
-  __syncthreads();
+    __syncthreads();
+    EDGE_PHASE(1);  // row tables and fd
 
-  float acc[RM][8];
-  gemm_block<T, H>(opnd, wd, Kd, lanes, btile, acc, tid);
-
-  // e = silu(emb @ w_d + term_i + term_j)
-  const int c0 = tx * 4;
-  const int c1 = H / 2 + tx * 4;
-  float e[RM][8];
+    // the embedding tile, 8 lanes per item; lanes past `lanes` and dead
+    // rows are 0 (the weight rows past `lanes` are zero-filled too)
+    const int chunks = Kd / 8;
+    for (int idx = tid; idx < kRows * chunks; idx += kThreads) {
+      const int r = idx / chunks;
+      const int l0 = (idx % chunks) * 8;
+      const bool live = ti_row[r] >= 0;
+      float v[8];
+      if constexpr (E == Emb::kRead) {
+        if (live) {
+          load_lanes8(de + (static_cast<size_t>(q0) * A + r) * lanes, l0,
+                      lanes, v);
+        } else {
 #pragma unroll
-  for (int m = 0; m < RM; ++m) {
-    const int r = ty * RM + m;
-    if (r < rows) {
-      if constexpr (kBcast) {
-        const int i = i0 + r / A;
-        const int j = r % A;
-        const T* tip = ti + (static_cast<size_t>(b) * A + i) * H;
-        const T* tjp = tj + (static_cast<size_t>(b) * A + j) * H;
-        const float4 p0 = load4(tip + c0);
-        const float4 p1 = load4(tip + c1);
-        const float4 q0 = load4(tjp + c0);
-        const float4 q1 = load4(tjp + c1);
-        const float pi_[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-        const float qj[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          e[m][n] = round_to<T>(silu(acc[m][n] + pi_[n] + qj[n]));
+          for (int k = 0; k < 8; ++k) v[k] = 0.0f;
         }
       } else {
 #pragma unroll
-        for (int n = 0; n < 8; ++n) e[m][n] = round_to<T>(silu(acc[m][n]));
+        for (int k = 0; k < 8; ++k) {
+          const int l = l0 + k;
+          float x = 0.0f;
+          if (live && l < lanes) {
+            // rounded as written (no contraction), as the plain version sums
+            const float ph = __fadd_rn(
+                __fadd_rn(__fmul_rn(fd_s[r][0], fms[0][l]),
+                          __fmul_rn(fd_s[r][1], fms[1][l])),
+                __fmul_rn(fd_s[r][2], fms[2][l]));
+            if constexpr (E == Emb::kSinCos) {
+              x = sin_or_cos(ph, l < n_sin);
+            } else {
+              x = ph;
+            }
+          }
+          v[k] = x;
+        }
       }
-    } else {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) e[m][n] = 0.0f;
+      tiles.store_emb8(r, l0 / 8, v);
     }
-  }
-  // gemm_block ended on a barrier, so the embedding is no longer read
-  store_tile_kmajor<H>(opnd, e, tid);
-  __syncthreads();
+    __syncthreads();
+    EDGE_PHASE(2);  // embedding tile
 
-  gemm_block<T, H>(opnd, w1, H, H, btile, acc, tid);
+    Acc<H> acc;
+    tiles.gemm1(Kd, acc, warp, lane, tid);
+    EDGE_PHASE(3);  // first product
 
-  // s * u_j (or s on the rows j = jsel), row-major [r][c] for the reduction
-  float bias[8];
-  {
-    const float4 v0 = load4(b1 + c0);
-    const float4 v1 = load4(b1 + c1);
-    bias[0] = v0.x; bias[1] = v0.y; bias[2] = v0.z; bias[3] = v0.w;
-    bias[4] = v1.x; bias[5] = v1.y; bias[6] = v1.z; bias[7] = v1.w;
-  }
+    // e = silu(emb @ w_d + term_i + term_j), rounded to T; 0 on dead rows.
+    // Per fragment half the node terms are loaded first, all together, so
+    // that their latencies overlap
+    {
+      const int rbase = (warp / G::WARPS_N) * G::MI * 16 + lane / 4;
+      const int cbase = (warp % G::WARPS_N) * G::NI * 8 + 2 * (lane % 4);
 #pragma unroll
-  for (int m = 0; m < RM; ++m) {
-    const int r = ty * RM + m;
-    const int j = r % A;
-    if (r < rows && (kAgg || j == jsel)) {
-      const float w = kAgg ? uj[static_cast<size_t>(b) * A + j] : 1.0f;
-      float s[8];
+      for (int mi = 0; mi < G::MI; ++mi) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) s[n] = silu(acc[m][n] + bias[n]) * w;
-      store4(opnd + r * kLdr + c0, s[0], s[1], s[2], s[3]);
-      store4(opnd + r * kLdr + c1, s[4], s[5], s[6], s[7]);
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + mi * 16 + h * 8;
+          const int qi = ti_row[r];
+          if constexpr (kBcast) {
+            // a dead row reads row 0 and discards it
+            const T* tip = ti + static_cast<size_t>(max(qi, 0)) * H + cbase;
+            const T* tjp = tj + static_cast<size_t>(tj_row[r]) * H + cbase;
+            float2 p[G::NI], q[G::NI];
+#pragma unroll
+            for (int ni = 0; ni < G::NI; ++ni) {
+              p[ni] = load2(tip + ni * 8);
+              q[ni] = load2(tjp + ni * 8);
+            }
+#pragma unroll
+            for (int ni = 0; ni < G::NI; ++ni) {
+              float* v = acc[mi][ni] + 2 * h;
+              v[0] = v[0] + p[ni].x + q[ni].x;
+              v[1] = v[1] + p[ni].y + q[ni].y;
+            }
+          }
+#pragma unroll
+          for (int ni = 0; ni < G::NI; ++ni) {
+            const float* v = acc[mi][ni] + 2 * h;
+            const bool live = qi >= 0;
+            tiles.store_e(r, cbase + ni * 8,
+                          live ? round_to<T>(silu(v[0])) : 0.0f,
+                          live ? round_to<T>(silu(v[1])) : 0.0f);
+          }
+        }
+      }
     }
-  }
-  __syncthreads();
+    __syncthreads();
+    EDGE_PHASE(4);  // first epilogue: node terms, silu, e
 
-  for (int idx = tid; idx < n_i * H; idx += kThreads) {
-    const int il = idx / H;
-    const int c = idx % H;
-    const float* p = opnd + (il * A) * kLdr + c;
-    float sum = 0.0f;
-    if constexpr (kAgg) {
-      for (int j = 0; j < A; ++j) sum += p[j * kLdr];
-    } else {
-      sum = p[jsel * kLdr];
+    tiles.gemm2(acc, warp, lane, tid);
+    EDGE_PHASE(5);  // second product
+    // s * u_j (or s on the rows j = jsel) in the fragments, f32
+    {
+      const int r0 = (warp / G::WARPS_N) * G::MI * 16 + lane / 4;
+      const int c0 = (warp % G::WARPS_N) * G::NI * 8 + 2 * (lane % 4);
+#pragma unroll
+      for (int mi = 0; mi < G::MI; ++mi) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float w = w_row[r0 + mi * 16 + h * 8];
+#pragma unroll
+          for (int ni = 0; ni < G::NI; ++ni) {
+            const int c = c0 + ni * 8;
+            float* v = acc[mi][ni] + 2 * h;
+            v[0] = silu(v[0] + b1s[c]) * w;
+            v[1] = silu(v[1] + b1s[c + 1]) * w;
+          }
+        }
+      }
     }
-    const size_t row = static_cast<size_t>(b) * A + i0 + il;
-    out[row * H + c] = from_float<T>(sum * ui[row]);
+    // the j-sum: kSumRows rows at a time are staged in f32 (over emb and e,
+    // which every warp has read by the barrier), then thread c sums column c
+    // down the rows in order and writes out_i = u_i * sum_j when row i's run
+    // of A rows ends; the sum is taken in the same order on every run
+    EDGE_PHASE(6);  // second silu and u_j
+    constexpr int kLdS = H + 8;
+    const int live_rows = n_i * A;
+    float run = 0.0f;  // row i's sum so far (thread c: column c)
+    int il = 0;        // the tile's row i whose run is being summed
+    for (int r0 = 0; r0 < live_rows; r0 += kSumRows) {
+      __syncthreads();
+      for_each_acc<H>(acc, warp, lane, [&](int r, int c, float v0, float v1) {
+        if (r >= r0 && r < r0 + kSumRows) {
+          store2(tiles.sums + (r - r0) * kLdS + c, v0, v1);
+        }
+      });
+      __syncthreads();
+      if (tid < H) {
+        const int r1 = min(r0 + kSumRows, live_rows);
+        int r = r0;
+        while (r < r1) {
+          // the rows of row i's run that lie in this chunk, two sums apart
+          const int end = (il + 1) * A;
+          const int stop = min(r1, end);
+          float s0 = 0.0f, s1 = 0.0f;
+          for (; r + 1 < stop; r += 2) {
+            s0 += tiles.sums[(r - r0) * kLdS + tid];
+            s1 += tiles.sums[(r + 1 - r0) * kLdS + tid];
+          }
+          if (r < stop) s0 += tiles.sums[(r++ - r0) * kLdS + tid];
+          run += s0 + s1;
+          if (r == end) {
+            const size_t q = static_cast<size_t>(q0 + il);
+            out[q * H + tid] = from_float<T>(run * ui[q]);
+            run = 0.0f;
+            ++il;
+          }
+        }
+      }
+    }
+    EDGE_PHASE(7);  // j-sum and output
   }
 }
 
 template <typename T, int H, Emb E, bool kBcast, bool kAgg>
 cudaError_t launch_typed(const EdgeArgs& a, cudaStream_t stream) {
-  const int rows_i = kRows / a.A;
-  const int n_chunks = (a.A + rows_i - 1) / rows_i;
-  constexpr size_t smem = operand_bytes<H>() + tile_bytes<T, H>();
+  using Tiles = typename TilesOf<T, H>::type;
+  constexpr size_t smem = Tiles::kBytes;
   auto* kernel = fused_edge_kernel<T, H, E, kBcast, kAgg>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<a.B * n_chunks, kThreads, smem, stream>>>(
+  // per instance, once: the shared-memory opt-in and the resident slots
+  static int slots = 0;
+  if (slots == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    slots = resident_blocks(kernel, smem);
+    if (slots == 0) return cudaErrorInvalidConfiguration;
+  }
+  const int rows_i = kRows / a.A;
+  const int n_tiles = (a.B * a.A + rows_i - 1) / rows_i;
+  const int grid = n_tiles < slots ? n_tiles : slots;
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.ti), static_cast<const T*>(a.tj), a.fr, a.fmat,
       static_cast<const T*>(a.de), a.ui, a.uj, static_cast<const T*>(a.wd),
       static_cast<const T*>(a.w1), static_cast<const T*>(a.b1),
-      static_cast<T*>(a.out), a.A, a.lanes, a.n_sin, a.jsel, rows_i,
-      n_chunks);
+      static_cast<T*>(a.out), a.B, a.A, a.lanes, a.n_sin, a.jsel, rows_i,
+      n_tiles);
   return cudaGetLastError();
 }
 
@@ -351,3 +455,37 @@ extern "C" int fused_edge_launch(int mode, const void* ti, const void* tj,
   }
   return static_cast<int>(err);
 }
+
+// Dynamic shared memory (bytes) of one block of the instance at width H and
+// dtype (0 = float32, 1 = bfloat16); -1 for a width without an instance.
+extern "C" int fused_edge_smem_bytes(int H, int dtype) {
+  size_t bytes;
+  switch (H) {
+    case 32:
+      bytes = dtype ? Bf16Tiles<32>::kBytes : Tf32x3Tiles<32>::kBytes;
+      break;
+    case 64:
+      bytes = dtype ? Bf16Tiles<64>::kBytes : Tf32x3Tiles<64>::kBytes;
+      break;
+    case 128:
+      bytes = dtype ? Bf16Tiles<128>::kBytes : Tf32x3Tiles<128>::kBytes;
+      break;
+    case 256:
+      bytes = dtype ? Bf16Tiles<256>::kBytes : Tf32x3Tiles<256>::kBytes;
+      break;
+    default:
+      return -1;
+  }
+  return static_cast<int>(bytes);
+}
+
+#ifdef FUSED_EDGE_CYCLES
+// Copies the 8 phase counters to host memory and zeroes them.
+extern "C" int fused_edge_read_cycles(unsigned long long* host) {
+  cudaError_t err =
+      cudaMemcpyFromSymbol(host, edge_cycles, sizeof(edge_cycles));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[8] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(edge_cycles, zero, sizeof(zero)));
+}
+#endif

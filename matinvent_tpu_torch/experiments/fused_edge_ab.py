@@ -17,9 +17,10 @@ time, to attribute its time:
 
 Each mode's kernel is timed beside its plain version, and ``torch_chain``,
 the same function as a chain of PyTorch ops (cuBLAS products), is timed as
-the baseline. Times are CUDA events after a warm-up; the TPU harness's
-block-size sweep has no counterpart, since the CUDA kernel keeps its own
-geometry, which the record states. Prints one JSON record.
+the baseline. Times are CUDA events over a captured CUDA graph of launches
+(device time, ``experiments/timing.py``); the TPU harness's block-size
+sweep has no counterpart, since the CUDA kernel keeps its own geometry,
+which the record states. Prints one JSON record.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from matinvent_tpu_torch.device import resolve_device
-from matinvent_tpu_torch.experiments.timing import bound_ms, card, nbytes, time_ms
+from matinvent_tpu_torch.experiments.timing import bound_ms, card, eager_ms, nbytes, time_ms
 from matinvent_tpu_torch.models.cspnet import sinusoids_embedding
 from matinvent_tpu_torch.ops.fused_edge import (
     check_tensors,
@@ -52,7 +53,7 @@ _PARTS = {
     "noagg": (True, True, False),
     "gemmonly": (False, False, False),
 }
-ROWS_PER_BLOCK = 64  # edge rows of one CUDA block (csrc/edge_tiles.cuh kRows)
+ROWS_PER_TILE = 64  # edge rows of one CUDA tile (csrc/edge_tiles.cuh kRows)
 
 
 def edge_variant_plain(mode, ti, tj, fr, ui, uj, fmat, wd, w1, b1):
@@ -77,7 +78,7 @@ def edge_variant(mode, ti, tj, fr, ui, uj, fmat, wd, w1, b1):
         return edge_variant_plain(mode, ti, tj, fr, ui, uj, fmat, wd, w1, b1)
     B, A, _ = ti.shape
     lanes = wd.shape[0]
-    if not (1 <= A <= ROWS_PER_BLOCK and 3 * NF <= lanes <= DP):
+    if not (1 <= A <= ROWS_PER_TILE and 3 * NF <= lanes <= DP):
         raise ValueError(f"atoms {A} must be in 1..64, lanes {lanes} in {3 * NF}..{DP}")
     check_tensors([
         ("ti", ti, (B, A, H), CDT), ("tj", tj, (B, A, H), CDT),
@@ -161,12 +162,22 @@ def pair_work(na: np.ndarray, lanes: int, args) -> dict:
     return dict(pairs=pairs, flops=flops, bytes=moved, bound_ms=ms, bound_by=by)
 
 
+def persistent_blocks(tiles: int) -> int | None:
+    """Blocks of a persistent launch over ``tiles`` tiles at one block per
+    SM (None without a card)."""
+    if not torch.cuda.is_available():
+        return None
+    return min(tiles, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
 def geometry(crystals: int, atoms: int) -> dict:
-    """The CUDA kernel's launch: one block per crystal and run of whole
-    rows i (at most 64 edge rows), 256 threads, 2 blocks per SM."""
-    rows_i = ROWS_PER_BLOCK // atoms
-    return dict(threads=256, edge_rows_per_block=rows_i * atoms, rows_i_per_block=rows_i,
-                blocks=crystals * (round_up(atoms, rows_i) // rows_i), blocks_per_sm=2)
+    """The CUDA kernel's launch: 64-row tiles of ``rows_i`` whole rows i each,
+    packed across crystals, walked by persistent blocks of 256 threads (one
+    per SM at H = 256, where a block holds 200 KB of shared memory)."""
+    rows_i = ROWS_PER_TILE // atoms
+    tiles = round_up(crystals * atoms, rows_i) // rows_i
+    return dict(threads=256, rows_i_per_tile=rows_i, edge_rows_per_tile=rows_i * atoms,
+                tiles=tiles, blocks=persistent_blocks(tiles), blocks_per_sm=1)
 
 
 def main(device=None, crystals: int = 203, atoms: int = 20, iters: int = 50) -> dict:
@@ -177,8 +188,8 @@ def main(device=None, crystals: int = 203, atoms: int = 20, iters: int = 50) -> 
     on_card = dev.type == "cuda"
     args, na = make_inputs(np.random.default_rng(0), crystals, atoms, dev)
 
-    def timed(fn):
-        return time_ms(fn, iters) if on_card else None
+    def timed(fn, clock=time_ms):
+        return clock(fn, iters) if on_card else None
 
     rec = dict(harness="fused_edge_ab", device=card() if on_card else "cpu",
                crystals=crystals, atoms=atoms, H=H, lanes=DP, dtype="bfloat16",
@@ -191,6 +202,7 @@ def main(device=None, crystals: int = 203, atoms: int = 20, iters: int = 50) -> 
         modes[mode] = dict(
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
             ms=timed(lambda: edge_variant(mode, *args)),
+            eager_ms=timed(lambda: edge_variant(mode, *args), eager_ms),
             plain_ms=timed(lambda: edge_variant_plain(mode, *args)),
         )
     rec["modes"] = modes

@@ -17,9 +17,9 @@ H = 256, bf16):
          ``[B, A, A, 64]`` embedding instead of computing sin/cos;
          ``torch_demb_chain`` is its chain of PyTorch ops.
 
-Each kernel is timed beside its plain version with CUDA events after a
-warm-up; the TPU harness's block-size sweep has no counterpart. Prints one
-JSON record.
+Each kernel is timed beside its plain version with CUDA events over a
+captured CUDA graph of launches (``experiments/timing.py``); the TPU
+harness's block-size sweep has no counterpart. Prints one JSON record.
 """
 from __future__ import annotations
 
@@ -35,13 +35,14 @@ from matinvent_tpu_torch.experiments.fused_edge_ab import (
     CDT,
     DP,
     H,
-    ROWS_PER_BLOCK,
+    ROWS_PER_TILE,
     chain_silu,
     chain_from_emb,
     geometry,
     pair_work,
+    persistent_blocks,
 )
-from matinvent_tpu_torch.experiments.timing import bound_ms, card, nbytes, time_ms
+from matinvent_tpu_torch.experiments.timing import bound_ms, card, eager_ms, nbytes, time_ms
 from matinvent_tpu_torch.ops.fused_edge import (
     check_tensors,
     edge_chain_plain,
@@ -120,7 +121,7 @@ def demb_edge(ti, tj, de, ui, uj, wd, w1, b1):
         return demb_edge_plain(ti, tj, de, ui, uj, wd, w1, b1)
     B, A, _ = ti.shape
     lanes = wd.shape[0]
-    if not (1 <= A <= ROWS_PER_BLOCK and 1 <= lanes <= DP):
+    if not (1 <= A <= ROWS_PER_TILE and 1 <= lanes <= DP):
         raise ValueError(f"atoms {A} must be in 1..64, lanes {lanes} in 1..{DP}")
     check_tensors([
         ("ti", ti, (B, A, H), CDT), ("tj", tj, (B, A, H), CDT),
@@ -186,28 +187,31 @@ def main(device=None, crystals: int = 203, atoms: int = 20, iters: int = 50) -> 
     on_card = dev.type == "cuda"
     flat, demb, na = make_inputs(np.random.default_rng(0), crystals, atoms, dev)
 
-    def timed(fn):
-        return time_ms(fn, iters) if on_card else None
+    def timed(fn, clock=time_ms):
+        return clock(fn, iters) if on_card else None
 
     def err(out, ref):
         return (out.float() - ref.float()).abs().max().item()
 
     R = flat[0].shape[0]
+    tiles = round_up(R, ROWS_PER_TILE) // ROWS_PER_TILE
     rec = dict(harness="fused_edge_flat", device=card() if on_card else "cpu",
                crystals=crystals, atoms=atoms, R=R, H=H, lanes=DP, dtype="bfloat16",
                iters=iters)
     rec["flat"] = dict(
         max_abs_err=err(flat_edge_mlp(*flat), flat_edge_mlp_plain(*flat)),
         ms=timed(lambda: flat_edge_mlp(*flat)),
+        eager_ms=timed(lambda: flat_edge_mlp(*flat), eager_ms),
         plain_ms=timed(lambda: flat_edge_mlp_plain(*flat)),
         torch_chain_ms=timed(lambda: torch_flat_chain(*flat)),
-        geometry=dict(threads=256, rows_per_block=ROWS_PER_BLOCK,
-                      blocks=round_up(R, ROWS_PER_BLOCK) // ROWS_PER_BLOCK, blocks_per_sm=2),
+        geometry=dict(threads=256, rows_per_tile=ROWS_PER_TILE, tiles=tiles,
+                      blocks=persistent_blocks(tiles), blocks_per_sm=1),
         **flat_work(flat),
     )
     rec["demb"] = dict(
         max_abs_err=err(demb_edge(*demb), demb_edge_plain(*demb)),
         ms=timed(lambda: demb_edge(*demb)),
+        eager_ms=timed(lambda: demb_edge(*demb), eager_ms),
         plain_ms=timed(lambda: demb_edge_plain(*demb)),
         torch_chain_ms=timed(lambda: torch_demb_chain(*demb)),
         geometry=geometry(crystals, atoms),

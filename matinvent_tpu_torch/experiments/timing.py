@@ -1,10 +1,14 @@
 """Kernel times and bounds on the card.
 
-A time is CUDA events around a run of launches after a warm-up; a bound is
+A time is CUDA events around a replay of a CUDA graph that holds a run of
+calls, captured after a warm-up: the device time per call, without the
+host's enqueue between launches (``time_ms``). ``eager_ms`` times the same
+calls launched one by one from Python, which is what a caller that does
+not capture them pays when the host is slower than the device. A bound is
 the least time the card could take for the same work: the bytes the
 function must move (each input read once, each output written once) over
-the memory rate, or its operations over the peak rate of their type,
-whichever is larger.
+the memory rate, or its operations over the peak rate of the route that
+computes them, whichever is larger.
 """
 from __future__ import annotations
 
@@ -12,15 +16,42 @@ import subprocess
 
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet, 700 W): memory rate, FP32
-# outside the tensor cores, dense bf16 tensor cores
+# published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): memory rate,
+# and per compute dtype the rate of the route the kernels take for the
+# products: bf16 on the tensor cores; f32 as 3xTF32 on the tensor cores,
+# three TF32 products (495 TFLOP/s) for each f32 one
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+PEAK_ROUTE = {
+    torch.float32: "3xTF32 tensor cores (495 TFLOP/s / 3)",
+    torch.bfloat16: "bf16 tensor cores (989 TFLOP/s)",
+}
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean milliseconds of ``fn()`` on the current stream, after 3 warm-up
-    calls."""
+    """Mean device milliseconds of ``fn()``: ``iters`` calls captured in one
+    CUDA graph (after 3 warm-up calls), replayed once under CUDA events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()  # the first replay uploads the graph
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def eager_ms(fn, iters: int) -> float:
+    """Mean milliseconds of ``fn()`` launched ``iters`` times from Python on
+    the current stream, after 3 warm-up calls (CUDA events)."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)

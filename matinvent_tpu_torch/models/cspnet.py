@@ -38,10 +38,14 @@ def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
 
 
 def layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.layer_norm(
-        x.to(dtype), layer.normalized_shape, layer.weight.to(dtype),
-        layer.bias.to(dtype), layer.eps,
-    )
+    """``layer(x)`` as ``flax.linen.LayerNorm(dtype=dtype)`` computes it: the
+    statistics in f32 (``E[x^2] - E[x]^2``, clipped at 0), the f32 scale and
+    bias applied in f32, and one rounding to ``dtype`` at the end."""
+    x = x.to(torch.float32)
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + layer.eps) * layer.weight.to(torch.float32)
+    return ((x - mean) * mul + layer.bias.to(torch.float32)).to(dtype)
 
 
 class CSPLayer(nn.Module):

@@ -213,9 +213,9 @@ class MatterGenDiffusion(nn.Module):
 
     # --------------------------------------------------------------- sampling
     def time_grid(self) -> torch.Tensor:
-        """Descending grid ``linspace(1, 1/N, N)`` in f32."""
-        N = self.config.timesteps
-        return torch.linspace(1.0, 1.0 / N, N, dtype=torch.float32, device=self.device)
+        """Descending grid ``linspace(1, 1/N, N)`` in f32, rounded as the
+        JAX package's ``jnp.linspace`` comes out of XLA (see ``time_grid``)."""
+        return time_grid(self.config.timesteps).to(self.device)
 
     def _guided_preds(
         self, noised, num_atoms, mask, conditions, guidance, *, fused_edge, dtype
@@ -422,6 +422,32 @@ class MatterGenDiffusion(nn.Module):
             self._finalize(states[bi], inits[bi][1], num_atoms_buckets[bi])
             for bi in range(n_b)
         ]
+
+
+def time_grid(N: int) -> torch.Tensor:
+    """``linspace(1, 1/N, N)`` in f32 on the CPU, rounded as XLA computes
+    the JAX package's ``jnp.linspace(1.0, 1.0 / N, N)``.
+
+    XLA folds ``start (1 - i / d) + stop (i / d)`` (``d = N - 1``) into
+    ``(1 - i r) + i c`` with the f32 constants ``r = 1 / d`` and
+    ``c = stop r``, and its CPU loop contracts both products into fused
+    multiply-adds: ``fma(i, c, fma(-i, r, 1))``. Each fma is formed exactly
+    in f64 and rounded once to f32 (exact for ``N < 2^14``). XLA's scalar
+    remainder loop rounds ``1 - i r`` before it adds ``i c``, so the last
+    few points of JAX's grid differ from these by up to 2^-24 (7 of 1000
+    at T = 1000, 1 of 8 at T = 8); ``tests/test_torch_port_faults.py`` pins
+    that and what it moves.
+    """
+    if N == 1:
+        return torch.ones(1, dtype=torch.float32)
+    f32, f64 = torch.float32, torch.float64
+    stop = torch.tensor(1.0 / N, dtype=f32)
+    r = torch.tensor(1.0, dtype=f32) / (N - 1)
+    c = stop * r
+    i = torch.arange(N - 1, dtype=f64)
+    inner = (1.0 - i * r.to(f64)).to(f32)
+    body = (i * c.to(f64) + inner.to(f64)).to(f32)
+    return torch.cat([body, stop[None]])
 
 
 def _as_noise(noise: NoiseSource | torch.Generator) -> NoiseSource:

@@ -14,10 +14,12 @@ On a CUDA tensor it launches the hand-written kernel ``csrc/fused_edge.cu``,
 which replaces the Pallas TPU kernel ``matinvent_tpu/ops/fused_edge.py:73
 _kernel``. The work is bound by arithmetic (two products of
 ``2 * A^2 * (64 H + H^2)`` flops per crystal against ``O(A H)`` bytes of node
-terms), so the kernel keeps the ``[A^2, H]`` intermediates in shared memory
-and registers and streams the weights from L2; see the source for its
-layout. On a CPU tensor the wrapper runs ``fused_edge_chain_plain``, the same
-math in plain PyTorch; a CUDA tensor never takes the plain version.
+terms), so the kernel runs both products on the tensor cores (bf16 ``mma``,
+or 3xTF32 for float32), keeps the ``[A^2, H]`` intermediates in shared
+memory and registers, and in bf16 keeps the weights resident in shared
+memory of persistent blocks; see the source for its layout. On a CPU tensor
+the wrapper runs ``fused_edge_chain_plain``, the same math in plain
+PyTorch; a CUDA tensor never takes the plain version.
 
 The same kernel body, with parts switched off at compile time, serves the
 fused-edge harnesses (``matinvent_tpu_torch/experiments``) through

@@ -49,9 +49,12 @@ def _inputs(B, A, H, nf, dtype, seed=0):
 
 
 # (B, A, H, nf): narrow test widths, a single atom, the 64-atom limit and the
-# sampler's bucket caps at H=256 (A=20 and 12 leave a short last row block)
+# sampler's bucket caps at H=256 (A=20 and 12 leave a short last row block),
+# then every width at the odd caps, and single-crystal buckets
 SHAPES = [(5, 4, 32, 3), (7, 8, 64, 10), (3, 1, 128, 10), (2, 64, 32, 10),
           (11, 8, 256, 10), (6, 12, 256, 10), (5, 16, 256, 10), (9, 20, 256, 10)]
+SHAPES += [(5, A, H, 10) for A in (1, 2, 3, 13, 20, 64) for H in (32, 64, 128, 256)]
+SHAPES += [(1, 1, 256, 10), (1, 20, 256, 10), (1, 64, 128, 10), (1, 3, 32, 4)]
 # f32: summation order only; bf16: e is rounded to bf16 before the second
 # product, and one flipped rounding moves an output by about one bf16 step
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
@@ -71,6 +74,25 @@ def test_kernel_matches_plain(B, A, H, nf, dtype):
     assert out.dtype == dtype and out.shape == (B, A, H)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype] * scale
     assert bool((out[~mask] == 0).all())
+
+
+# persistent blocks walk the tiles: fewer tiles than resident blocks, about
+# as many, and many more (at A=20 a tile holds 3 rows i, at A=8 8 rows i)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,A", [(7, 20), (19, 20), (131, 8), (1200, 20), (3000, 8)])
+def test_kernel_splits_tiles_over_persistent_blocks(B, A, dtype):
+    _need_card()
+    args, mask = _inputs(B, A, 256, 10, dtype, seed=B)
+    out = fused_edge_chain(*args, num_freqs=10)
+    torch.cuda.synchronize()
+    ref = fused_edge_chain_plain(*args, num_freqs=10)
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype] * scale
+    assert bool((out[~mask] == 0).all())
+    # the j-sum is taken in a fixed order: a second launch agrees bit for bit
+    again = fused_edge_chain(*args, num_freqs=10)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
 
 
 def test_kernel_rejects_what_it_does_not_take():
@@ -129,7 +151,7 @@ def test_sampling_on_card_launches_the_kernel():
 
 # (crystals, cap) of the harness kernels: odd shapes, a single atom, the
 # 64-atom limit and the harnesses' full width (bench.py's dominant bucket)
-HARNESS_SHAPES = [(7, 13), (3, 1), (2, 64), (203, 20)]
+HARNESS_SHAPES = [(7, 13), (3, 1), (2, 64), (203, 20), (1, 20), (5, 2), (4, 3)]
 
 
 def _close(out, ref, mask=None):
