@@ -17,24 +17,42 @@ launch counts set to 0 just before and read just after:
   through both edge paths (phase ``score_net``), then 256 crystals at
   T=1000 through the user entry point (``MatterGenSampler`` ->
   ``MatterGenDiffusion.sample_bucketed``), which launches the edge kernel,
-  beside the plain edge path (phase ``sampling``).
+  beside the plain edge path (phase ``sampling``);
+* the fine-tune (phase ``finetune``): one chunk of ``rl_chunk_loss`` at full
+  width on the ``rl_hhi_rich5`` start checkpoint (16 crystals x 25
+  timesteps, draws made by numpy), its loss and gradients held against the
+  same code on the CPU, then one ``FinetuneStep`` epoch timed per chunk;
+* the sampler's validity (phase ``validity``): 512 crystals of the start
+  checkpoint at T=1000 through the kernel, their SMACT, structural and
+  cell-size failure shares held against the JAX package's record in
+  ``experiments/results/validity_curve_r5.json``;
+* two RL iterations of the ``rl_hhi_rich5`` recipe, built by the entry
+  point ``matinvent_tpu_torch.pipeline.mat_invent`` (``resolve``, ``build``)
+  and run one ``MatInvent.rl_step`` at a time (phase ``rl``): sample,
+  filter, HHI reward, memory and replay, fine-tune; 12,000 kernel launches
+  in each iteration's sampling.
 
 Kernel times are device times (CUDA graph replay, ``experiments/timing.py``).
 Each phase prints one JSON line (the harnesses print their own records
 too); the line before the last is the ``{"kernels": [...]}`` record and the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that line. It needs one CUDA card;
-without one it exits non-zero at once. It writes nothing but the kernel
-builds (``matinvent_tpu_torch/_build/``).
+without one it exits non-zero at once. It writes the kernel builds
+(``matinvent_tpu_torch/_build/``) and, for phase ``rl``, a temporary
+directory that it removes.
 """
 from __future__ import annotations
 
 import ctypes
 import json
+import logging
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -42,9 +60,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from matinvent_tpu_torch.chem.validity import structure_validity
-from matinvent_tpu_torch.csrc.build import build
+from matinvent_tpu_torch.chem.validity import cell_size_ok, smact_valid, structure_validity
+from matinvent_tpu_torch.csrc.build import build, build_host
 from matinvent_tpu_torch.experiments import fused_edge_ab, fused_edge_flat
+from matinvent_tpu_torch.experiments.rl_profile import chunk_inputs, net_flops
 from matinvent_tpu_torch.experiments.timing import (
     PEAK_ROUTE,
     bound_ms,
@@ -53,13 +72,28 @@ from matinvent_tpu_torch.experiments.timing import (
     time_ms,
 )
 from matinvent_tpu_torch.models.cspnet import sinusoids_embedding
-from matinvent_tpu_torch.models.mattergen.diffusion import MGNoised
+from matinvent_tpu_torch.models.mattergen.diffusion import MGNoised, NoiseDraws
 from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
 from matinvent_tpu_torch.models.suite.mattergen import load_model
 from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain, fused_edge_chain_plain
+from matinvent_tpu_torch.parallel.train import FinetuneStep
+from matinvent_tpu_torch.pipeline import mat_invent
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "experiments/results/rl_hhi_rich5/models/final"
+# the rl_hhi_rich5 run's start checkpoint and num-atoms histogram
+START = ROOT / "experiments/results/pretrained_geneval_r5_r5_long_s120000_ema"
+HIST = ROOT / "experiments/data/corpus_r5_num_atoms.json"
+RL_METRICS = ROOT / "experiments/results/rl_hhi_rich5/metrics.csv"
+# the JAX package's validity of START: experiments/results/validity_curve_r5.json,
+# 512 crystals, corpus_r5 histogram, 4 buckets, seed 1
+VALIDITY_RECORD = {"smact_fail": 0.2988, "structural_fail": 0.0234, "cell_fail": 0.0,
+                   "all_ok": 0.6875, "n": 512}
+VALIDITY_BATCH, VALIDITY_SEED = 512, 1
+# the fine-tune chunk (16 crystals x 25 timesteps, rl_profile.chunk_inputs)
+# at grid indices 500..524, the recipe's lr and KL weight
+FT_CHUNK, FT_LR, FT_SIGMA = 20, 1e-4, 0.1
+FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 DEV = "cuda"
 BATCH, BUCKETS, MAX_ATOMS, SEED = 256, 4, 20, 0
 SOURCES = ("fused_edge", "edge_flat")  # csrc/<name>.cu
@@ -213,8 +247,10 @@ def phase_build() -> dict:
     """Builds every source at once, one nvcc each; every instance must
     compile without spills."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        host = pool.submit(build_host, "charge_balance")
         built = dict(zip(SOURCES, pool.map(build, SOURCES)))
+        host = host.result()
     libraries = {
         name: dict(library=str(b.path.relative_to(ROOT)), nvcc_seconds=b.seconds,
                    instances=ptxas_report(b.log, _smem_query(name, b.lib)))
@@ -226,7 +262,8 @@ def phase_build() -> dict:
         for inst in lib["instances"]:
             if inst.get("spill_bytes", 1) != 0:
                 raise AssertionError(f"{inst['instance']} spills: {inst}")
-    rec = dict(phase="build", seconds=time.perf_counter() - t0, libraries=libraries)
+    rec = dict(phase="build", seconds=time.perf_counter() - t0, libraries=libraries,
+               host_library=str(host.path.relative_to(ROOT)), gxx_seconds=host.seconds)
     emit(rec)
     return rec
 
@@ -469,6 +506,230 @@ def phase_sampling(model) -> dict:
     return rec
 
 
+def chunk_grads(agent, prior, batch, rewards, draws, dev):
+    """(loss, {name: gradient}) of one chunk on ``dev``."""
+    accum = len(draws.cell)
+    t_idx = FT_CHUNK * accum + torch.arange(accum, device=dev)
+    agent.zero_grad(set_to_none=True)
+    loss, _ = agent.rl_chunk_loss(
+        prior, batch.to(dev), rewards.to(dev), t_idx, FT_SIGMA,
+        draws=NoiseDraws(*(d.to(dev) for d in draws)),
+    )
+    loss.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in agent.named_parameters()}
+    agent.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def phase_finetune() -> dict:
+    """One chunk of the fine-tune at full width on the card against the same
+    code on the CPU in f32 (only the summation order differs: the loss and
+    every gradient within 1e-4 of their scale), then one FinetuneStep epoch
+    on the card: every chunk finite, the prior unchanged bit for bit, the
+    agent moved. Times the epoch's chunks (forward, backward, Adam) with
+    CUDA events."""
+    t0 = time.perf_counter()
+    agent = load_model(START, device=DEV)
+    prior = load_model(START, device=DEV).requires_grad_(False)
+    batch, rewards, draws = chunk_inputs(agent.d3pm.vocab)
+    accum = len(draws.cell)
+    loss, grads = chunk_grads(agent, prior, batch, rewards, draws, DEV)
+    cpu_agent = load_model(START, device="cpu")
+    cpu_prior = load_model(START, device="cpu").requires_grad_(False)
+    cpu_t0 = time.perf_counter()
+    cpu_loss, cpu_grads = chunk_grads(cpu_agent, cpu_prior, batch, rewards, draws, "cpu")
+    cpu_seconds = time.perf_counter() - cpu_t0
+    del cpu_agent, cpu_prior
+    if not math.isfinite(loss) or abs(loss - cpu_loss) > 1e-4 * max(1.0, abs(cpu_loss)):
+        raise AssertionError(f"chunk loss card {loss} vs cpu {cpu_loss}")
+    grad_err = 0.0
+    for k, g in cpu_grads.items():
+        err = (grads[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-12)
+        if not err <= 1e-4:
+            raise AssertionError(f"gradient {k}: card vs cpu {err} of its scale > 1e-4")
+        grad_err = max(grad_err, err)
+
+    step = FinetuneStep(lr=FT_LR, timesteps=agent.config.timesteps, accum_steps=accum,
+                        sigma_kl=FT_SIGMA, epochs=1)
+    prior_before = {k: v.clone() for k, v in prior.state_dict().items()}
+    agent_before = {k: v.clone() for k, v in agent.state_dict().items()}
+    opt = step.optimizer(agent)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    dev_batch, dev_rewards = batch.to(DEV), rewards.to(DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    metrics = step.epoch(agent, opt, prior, dev_batch, dev_rewards, generator=gen)
+    end.record()
+    torch.cuda.synchronize()
+    ms_per_chunk = start.elapsed_time(end) / step.n_chunks
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"a fine-tune chunk's loss is not finite: {metrics}")
+    if any(not torch.equal(v, prior_before[k]) for k, v in prior.state_dict().items()):
+        raise AssertionError("the prior changed during the fine-tune")
+    if all(torch.equal(v, agent_before[k]) for k, v in agent.state_dict().items()):
+        raise AssertionError("the fine-tune did not move the agent")
+
+    cfg, V = agent.config, agent.d3pm.vocab
+    na = batch.num_atoms.numpy()
+    # agent forward + backward (twice the forward) + prior forward
+    flops = 4 * accum * net_flops(na, cfg, V)
+    padded = 4 * accum * net_flops(np.full_like(na, MAX_ATOMS), cfg, V)
+    params = sum(p.numel() for p in agent.parameters())
+    # both nets' weights and the inputs read once, the gradients written once
+    moved = 4 * 3 * params + sum(nbytes(d) for d in draws) + nbytes(
+        batch.frac_coords, batch.lattice, batch.atom_types)
+    bound = 1e3 * max(flops / FP32_FLOPS, moved / 3.35e12)
+    rec = dict(
+        phase="finetune", crystals=len(na), accum_steps=accum, chunk=FT_CHUNK,
+        num_atoms=na.tolist(), loss=loss, cpu_loss=cpu_loss, cpu_seconds=cpu_seconds,
+        grad_max_rel_err=grad_err, tol=1e-4, epoch_metrics=metrics, chunks=step.n_chunks,
+        ms_per_chunk=ms_per_chunk, bound_ms=bound, bound_by="operations",
+        bound_rate="float32 outside the tensor cores, 67 TFLOP/s",
+        chunk_tflop=flops / 1e12, padded_chunk_tflop=padded / 1e12,
+        padded_bound_ms=1e3 * padded / FP32_FLOPS, peak_memory_bytes=peak,
+        seconds=time.perf_counter() - t0,
+    )
+    emit(rec)
+    return rec
+
+
+def measure_validity(strucs) -> dict:
+    """The failure shares of ``experiments/validity_fix_r5.py:32``: SMACT
+    charge balance, structural sanity and cell size, and all three passed."""
+    c = {"smact_fail": 0, "structural_fail": 0, "cell_fail": 0, "all_ok": 0}
+    for st in strucs:
+        ok_s, ok_g, ok_c = smact_valid(st), structure_validity(st), cell_size_ok(st)
+        c["smact_fail"] += not ok_s
+        c["structural_fail"] += not ok_g
+        c["cell_fail"] += not ok_c
+        c["all_ok"] += ok_s and ok_g and ok_c
+    return {k: v / max(len(strucs), 1) for k, v in c.items()}
+
+
+def phase_validity(model) -> dict:
+    """512 crystals of the start checkpoint through the kernel (corpus_r5
+    histogram, 4 buckets, seed 1); each share within 4 sigma of the
+    difference of two binomial shares of the JAX package's record."""
+    t0 = time.perf_counter()
+    kw = dict(batch_size=VALIDITY_BATCH, num_batches=1, max_atoms=MAX_ATOMS,
+              num_atoms_distribution="corpus_r5", num_atoms_distribution_file=str(HIST),
+              size_buckets=BUCKETS, seed=VALIDITY_SEED)
+    plan = MatterGenSampler(**kw)
+    cuts, caps = plan.bucket_plan(plan._draw_num_atoms(VALIDITY_BATCH))
+    c = model.config
+    expected = c.num_layers * (1 + c.n_corrector) * c.timesteps * len(caps)
+    fused_edge_chain.launches = 0
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    _, strucs = MatterGenSampler(**kw).generate(model)
+    sample_seconds = time.perf_counter() - s0
+    launches = fused_edge_chain.launches
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != {expected}")
+    shares = measure_validity(strucs)
+    n, four_sigma = VALIDITY_RECORD["n"], {}
+    for k, p in shares.items():
+        ref = VALIDITY_RECORD[k]
+        pooled = (p * len(strucs) + ref * n) / (len(strucs) + n)
+        four_sigma[k] = 4 * math.sqrt(pooled * (1 - pooled) * (1 / len(strucs) + 1 / n))
+        if abs(p - ref) > four_sigma[k] + 1e-12:
+            raise AssertionError(f"{k}: {p} vs the JAX record {ref}, beyond 4 sigma {four_sigma[k]}")
+    rec = dict(phase="validity", n=len(strucs), caps=caps, crystals=[len(x) for x in cuts],
+               kernel_launches=launches, sample_seconds=sample_seconds, **shares,
+               jax_record=VALIDITY_RECORD, four_sigma=four_sigma,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+class LogRecords(logging.Handler):
+    """The messages the pipeline logs at INFO and above."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages: list[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def numbers(self, pattern: str) -> list[float]:
+        return [float(v) for m in self.messages for v in re.findall(pattern, m)]
+
+
+def phase_rl(start_sd: dict) -> dict:
+    """Two iterations of the rl_hhi_rich5 recipe, built as the entry point
+    builds it and run one ``rl_step`` at a time on the card, into a
+    temporary directory: 12,000 kernel launches in each iteration's
+    sampling, every fine-tune loss finite, the prior unchanged, the second
+    iteration sampling from the updated agent, the JAX run's metrics.csv
+    columns, the memory and sample files, and a saved checkpoint equal to
+    the agent. The per-iteration values come from the metrics rows and the
+    pipeline's log."""
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_rl_")
+    iters: list[dict] = []
+    root = logging.getLogger()
+    level, log = root.level, LogRecords()
+    root.setLevel(logging.INFO)
+    root.addHandler(log)
+    try:
+        pipe = mat_invent.build(mat_invent.resolve("rl_hhi_rich5", 2), out)
+        c = pipe.agent.config
+        expected = c.num_layers * (1 + c.n_corrector) * c.timesteps
+        for step in range(pipe.rl_epoch):
+            pipe.step = step
+            log.messages.clear()
+            at_start = all(torch.equal(v.cpu(), start_sd[k])
+                           for k, v in pipe.agent.state_dict().items())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fused_edge_chain.launches = 0
+            pipe.rl_step()
+            torch.cuda.synchronize()
+            launches = fused_edge_chain.launches
+            row = pipe.logger.rows[-1]
+            losses = log.numbers(r"loss\w*: (\S+?)(?:,|$)")
+            iters.append(dict(
+                step=step, kernel_launches=launches, agent_is_start_checkpoint=at_start,
+                valid=int(log.numbers(r"Number of valid samples: (\d+)")[0]),
+                reward_mean=row.get("reward mean"),
+                finetune_batch=int(log.numbers(r"Fine-tune batch: (\d+)")[0]),
+                finetune_losses=losses,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                **{k: row.get(k) for k in ("time_sample_s", "time_score_s", "time_finetune_s")},
+            ))
+            if launches != expected:
+                raise AssertionError(f"iteration {step}: {launches} launches, not {expected}")
+            if len(losses) != 3 * pipe.finetuner.epochs or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"iteration {step}: fine-tune losses {losses}")
+        if [it["agent_is_start_checkpoint"] for it in iters] != [True, False]:
+            raise AssertionError("the second iteration did not sample from the updated agent")
+        if any(not torch.equal(v.cpu(), start_sd[k]) for k, v in pipe.prior.state_dict().items()):
+            raise AssertionError("the prior changed")
+        with open(Path(out) / "metrics.csv") as fh, open(RL_METRICS) as ref:
+            header, ref_header = fh.readline().strip(), ref.readline().strip()
+        if header != ref_header:
+            raise AssertionError(f"metrics.csv columns {header} != {ref_header}")
+        for name in ("long_term_memory.csv", "step_0000_eval.extxyz", "step_0001_eval.extxyz"):
+            if not (Path(out) / "samples" / name).is_file():
+                raise AssertionError(f"{name} was not written")
+        pipe.model_suite.save_model(pipe.agent, Path(out) / "models/final")
+        final = load_model(Path(out) / "models/final", device=DEV)
+        if any(not torch.equal(v, pipe.agent.state_dict()[k]) for k, v in final.state_dict().items()):
+            raise AssertionError("the final checkpoint differs from the agent")
+    finally:
+        root.removeHandler(log)
+        root.setLevel(level)
+        shutil.rmtree(out, ignore_errors=True)
+    rec = dict(phase="rl", recipe="rl_hhi_rich5", iterations=iters,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
 def instances(build_rec: dict, library: str, prefix: str) -> list[dict]:
     """The build's instances of ``library`` whose name starts with
     ``prefix``: registers, spills and shared memory of each."""
@@ -483,6 +744,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     dev = phase_device()
     built = phase_build()
     kern = phase_kernel()
@@ -494,6 +756,14 @@ def main() -> int:
     model = load_model(CKPT, device=DEV, config_overrides={"sample_dtype": "bfloat16"})
     phase_score_net(model, torch.bfloat16)
     samp_bf16 = phase_sampling(model)
+    del model
+    phase_finetune()
+    model = load_model(START, device=DEV)
+    start_sd = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    valid = phase_validity(model)
+    del model
+    rl = phase_rl(start_sd)
+    emit(dict(phase="done", seconds=time.perf_counter() - t0))
     b = kern["buckets"]
     common = dict(route="cuda", impl="cuda", checked=True)
     emit({"kernels": [dict(common,
@@ -502,6 +772,8 @@ def main() -> int:
         replaces="matinvent_tpu/ops/fused_edge.py:73",
         launches=samp["kernel_launches"],
         launches_bf16=samp_bf16["kernel_launches"],
+        launches_validity=valid["kernel_launches"],
+        launches_rl=[it["kernel_launches"] for it in rl["iterations"]],
         max_abs_err=kern["max_abs_err_f32"],
         max_abs_err_bf16=kern["max_abs_err_bf16"],
         # one layer-eval of the batch: the sum over the bucket shapes, f32

@@ -1,4 +1,4 @@
-"""Build the package's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+"""Build the package's native sources and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into ``matinvent_tpu_torch/_build/lib<name>-<hash>.so``, where the hash
@@ -10,7 +10,8 @@ Threads may build different sources at the same time: nvcc runs outside
 the lock. PyTorch's headers are not included and
 ``torch.utils.cpp_extension`` is not used: the build takes seconds. A
 missing ``nvcc`` or a failed build raises with the compiler's output;
-nothing falls back.
+nothing falls back. ``build_host`` compiles a host C++ source
+``csrc/<name>.cpp`` with ``g++`` the same way.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler", "-fPIC",
 )
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
@@ -64,13 +66,15 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def source_digest(name: str, csrc: Path = CSRC, flags: tuple[str, ...] = NVCC_FLAGS) -> str:
-    """Hash of ``csrc/<name>.cu``, of every file of ``csrc`` that it
+def source_digest(
+    name: str, csrc: Path = CSRC, flags: tuple[str, ...] = NVCC_FLAGS, suffix: str = ".cu"
+) -> str:
+    """Hash of ``csrc/<name><suffix>``, of every file of ``csrc`` that it
     ``#include "..."``s (followed through headers, each file once) and of
     the flags. A quoted include that is not in ``csrc`` is left to nvcc."""
     root = csrc.resolve()
     h = hashlib.sha256(" ".join(flags).encode())
-    todo, seen = [root / f"{name}.cu"], set()
+    todo, seen = [root / f"{name}{suffix}"], set()
     while todo:
         path = todo.pop(0)
         if path in seen:
@@ -88,24 +92,40 @@ def source_digest(name: str, csrc: Path = CSRC, flags: tuple[str, ...] = NVCC_FL
 def build(name: str, defines: tuple[str, ...] = ()) -> Built:
     """Compile (once) and load ``csrc/<name>.cu``, with ``-D`` of each of
     ``defines``."""
-    key = (name, defines)
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    return _build(name, ".cu", flags, find_nvcc)
+
+
+def build_host(name: str) -> Built:
+    """Compile (once) with ``g++`` and load the host source ``csrc/<name>.cpp``."""
+
+    def gxx() -> str:
+        path = shutil.which("g++")
+        if path is None:
+            raise RuntimeError(f"g++ not found: csrc/{name}.cpp is built from source on first use")
+        return path
+
+    return _build(name, ".cpp", GXX_FLAGS, gxx)
+
+
+def _build(name: str, suffix: str, flags: tuple[str, ...], compiler) -> Built:
+    key = (name, flags)
     with _lock:
         if key in _loaded:
             return _loaded[key]
-    src = CSRC / f"{name}.cu"
-    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    digest = source_digest(name, flags=flags)
+    src = CSRC / f"{name}{suffix}"
+    digest = source_digest(name, flags=flags, suffix=suffix)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = lib_path.with_suffix(".log")
     seconds = 0.0
     if not lib_path.exists():
-        nvcc = find_nvcc()
+        cc = compiler()
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [nvcc, *flags, "-o", tmp, str(src)],
+            [cc, *flags, "-o", tmp, str(src)],
             capture_output=True,
             text=True,
         )
@@ -114,7 +134,7 @@ def build(name: str, defines: tuple[str, ...] = ()) -> Built:
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(
-                f"nvcc failed to build {src} (exit {proc.returncode}):\n{log}"
+                f"{Path(cc).name} failed to build {src} (exit {proc.returncode}):\n{log}"
             )
         log_path.write_text(log)
         # atomic: a concurrent build of the same source sees a whole file

@@ -21,6 +21,15 @@ from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain
 LN_EPS = 1e-6
 
 
+def matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of ``[..., 3, 3]`` cell matrices: the f64 product rounded
+    to f32, as a broadcast multiply and sum. A matmul would go through
+    cuBLAS, which rounds to TF32 where the process allows it; the JAX
+    package pins these geometry products to ``Precision.HIGHEST``."""
+    a64, b64 = a.to(torch.float64), b.to(torch.float64)
+    return (a64[..., :, :, None] * b64[..., None, :, :]).sum(-2).to(torch.float32)
+
+
 def sinusoids_embedding(x: torch.Tensor, n_frequencies: int = 10) -> torch.Tensor:
     """Fourier embedding of periodic offsets ``[..., S] -> [..., 2 S F]``:
     ``concat(sin(x (x) f), cos(x (x) f))`` with a space-major inner layout."""
@@ -53,13 +62,11 @@ class CSPLayer(nn.Module):
 
     def __init__(
         self, hidden_dim: int = 128, num_freqs: int = 10, ln: bool = False,
-        ip: bool = True,
     ):
         super().__init__()
         H = hidden_dim
         self.hidden_dim = H
         self.num_freqs = num_freqs
-        self.ip = ip
         self.layer_norm = nn.LayerNorm(H, eps=LN_EPS) if ln else None
         self.edge_mlp_0 = nn.Linear(2 * H + 9 + 6 * num_freqs, H)
         self.edge_mlp_1 = nn.Linear(H, H)
@@ -70,7 +77,7 @@ class CSPLayer(nn.Module):
         self,
         node_features: torch.Tensor,  # [B, A, H]
         frac_diff: torch.Tensor | None,  # [B, A, A, 3] (x_j - x_i) mod 1
-        lattice: torch.Tensor,  # [B, 3, 3]
+        lattice_ips: torch.Tensor,  # [B, 3, 3] lattice @ lattice.T (matmul3)
         edge_mask: torch.Tensor,  # [B, A, A] bool: j is a neighbor of i
         denom: torch.Tensor,  # [B, A] aggregation denominator per node
         dist_emb: torch.Tensor | None = None,  # hoisted Fourier embedding
@@ -86,11 +93,6 @@ class CSPLayer(nn.Module):
             node_features = layer_norm(self.layer_norm, node_features, dtype)
         node_features = node_features.to(dtype)
 
-        if self.ip:
-            lat = lattice.to(torch.float32)
-            lattice_ips = lat @ lat.transpose(-1, -2)  # f32 geometry
-        else:
-            lattice_ips = lattice
         lattice_flat = lattice_ips.reshape(-1, 9).to(dtype)  # [B, 9]
 
         w = self.edge_mlp_0.weight.to(dtype)  # [H, 2H + 9 + 6nf] (out, in)

@@ -1,4 +1,4 @@
-"""Corruption processes of MatterGen-class joint diffusion, sampling parts
+"""Corruption processes of MatterGen-class joint diffusion
 (``matinvent_tpu/models/mattergen/corruption.py``).
 
 * ``LatticeVPSDE``: variance-preserving SDE on the 3x3 cell, with the
@@ -7,8 +7,9 @@
   fractional coordinates;
 * ``TypeD3PM``: discrete D3PM chain over atom types (uniform or absorbing).
 
-Random draws are not made here: the sampler passes them in (see
-``diffusion.NoiseSource``).
+Random draws are not made here: the sampler and ``add_noise`` pass them in
+(normal draws for the cell and the coordinates, a standard Gumbel draw for the
+types, since ``jax.random.categorical`` is ``argmax(logits + gumbel)``).
 """
 from __future__ import annotations
 
@@ -18,6 +19,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from matinvent_tpu_torch.ops.segment import graph_mean
+from matinvent_tpu_torch.ops.wrapped_normal import d_log_p_wrapped_normal
 
 
 @dataclass(frozen=True)
@@ -48,6 +52,11 @@ class LatticeVPSDE:
         std = sigma_lim * torch.sqrt(1.0 - torch.exp(-B_t))
         return mean, std
 
+    def sample_marginal(self, x0, t, num_atoms, eps: torch.Tensor):
+        """(x_t, eps, std) for the standard normal draw ``eps [B, 3, 3]``."""
+        mean, std = self.marginal(x0, t, num_atoms)
+        return mean + std * eps, eps, std
+
     def prior_sample(self, z: torch.Tensor, num_atoms: torch.Tensor) -> torch.Tensor:
         """Prior cell from a standard normal draw ``z [B, 3, 3]``."""
         return self.limit_std(num_atoms)[:, None, None] * z
@@ -62,6 +71,16 @@ class WrappedCoordVE:
 
     def sigma(self, t: torch.Tensor) -> torch.Tensor:
         return self.sigma_min * (self.sigma_max / self.sigma_min) ** t
+
+    def sample_marginal(self, x0, t, eps: torch.Tensor):
+        """(x_t wrapped, eps, sigma ``[B,1,1]``) for the standard normal draw
+        ``eps [B, A, 3]``."""
+        sigma = self.sigma(t)[:, None, None]
+        return (x0 + sigma * eps) % 1.0, eps, sigma
+
+    def score_target(self, eps: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+        """Wrapped-normal score at the sampled offset (reference convention)."""
+        return d_log_p_wrapped_normal(sigma * eps, sigma)
 
     def prior_sample(self, u: torch.Tensor) -> torch.Tensor:
         """Prior coords: the uniform draw ``u [B, A, 3]`` itself."""
@@ -120,6 +139,27 @@ class TypeD3PM:
             torch.floor(t * self.num_steps + 0.5).to(torch.long), 1, self.num_steps
         )
 
+    def _mask_onehot(self, like: torch.Tensor) -> torch.Tensor:
+        oh = torch.zeros(self.vocab, dtype=like.dtype, device=like.device)
+        oh[-1] = 1.0
+        return oh
+
+    def q_t_given_0(self, x0_onehot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Marginal q(x_t | x_0) probabilities ``[B, A, V]``."""
+        a = self.abar[self._t_index(t)][:, None, None]
+        if self.kind == "uniform":
+            return a * x0_onehot + (1.0 - a) / self.vocab
+        return a * x0_onehot + (1.0 - a) * self._mask_onehot(x0_onehot)
+
+    def sample_marginal(
+        self, x0: torch.Tensor, t: torch.Tensor, gumbel: torch.Tensor
+    ) -> torch.Tensor:
+        """x_t ``[B, A]`` (0-based classes) given x0 ``[B, A]`` and a standard
+        Gumbel draw ``[B, A, V]``."""
+        oh = F.one_hot(x0.long(), self.vocab).to(torch.float32)
+        probs = self.q_t_given_0(oh, t)
+        return torch.argmax(torch.log(torch.clamp(probs, min=1e-20)) + gumbel, dim=-1)
+
     def posterior_logits(
         self, x_t: torch.Tensor, x0_logits: torch.Tensor, t: torch.Tensor
     ) -> torch.Tensor:
@@ -140,8 +180,7 @@ class TypeD3PM:
             # q(x_{t-1} | x0) under the model's x0 distribution
             fact2 = abar_prev * x0_probs + (1.0 - abar_prev) * uniform
         else:
-            mask_oh = torch.zeros(self.vocab, dtype=x0_logits.dtype, device=x0_logits.device)
-            mask_oh[-1] = 1.0
+            mask_oh = self._mask_onehot(x0_logits)
             xt_is_mask = torch.sum(xt_oh * mask_oh, -1, keepdim=True)  # [B, A, 1]
             fact1 = (1.0 - beta_t) * xt_oh + beta_t * xt_is_mask
             fact2 = abar_prev * x0_probs + (1.0 - abar_prev) * mask_oh
@@ -159,3 +198,25 @@ class TypeD3PM:
         if self.kind == "uniform":
             return draw.long()
         return torch.full_like(draw, self.vocab - 1, dtype=torch.long)
+
+    def hybrid_loss(
+        self,
+        x0: torch.Tensor,  # [B, A] int
+        x_t: torch.Tensor,  # [B, A] int
+        x0_logits: torch.Tensor,  # [B, A, V]
+        t: torch.Tensor,  # [B]
+        mask: torch.Tensor,  # [B, A]
+        hybrid_lambda: float = 0.01,
+    ) -> torch.Tensor:
+        """Per-crystal D3PM hybrid loss ``[B]``: the KL between the true and
+        the model posteriors at t plus ``hybrid_lambda`` times the x0
+        cross-entropy, averaged over the real atoms."""
+        oh = F.one_hot(x0.long(), self.vocab).to(x0_logits.dtype)
+        true_post = self.posterior_logits(x_t, torch.log(oh + 1e-20), t)
+        model_post = self.posterior_logits(x_t, x0_logits, t)
+        p = torch.softmax(true_post, dim=-1)
+        kl = torch.sum(
+            p * (F.log_softmax(true_post, -1) - F.log_softmax(model_post, -1)), dim=-1
+        )
+        ce = -torch.gather(F.log_softmax(x0_logits, -1), -1, x0.long()[..., None])[..., 0]
+        return graph_mean(kl + hybrid_lambda * ce, mask)

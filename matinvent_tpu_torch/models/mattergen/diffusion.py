@@ -1,5 +1,4 @@
-"""MatterGen-class joint diffusion, sampling half
-(``matinvent_tpu/models/mattergen/diffusion.py``).
+"""MatterGen-class joint diffusion (``matinvent_tpu/models/mattergen/diffusion.py``).
 
 ``sample`` and ``sample_bucketed`` run the predictor-corrector ancestral
 sampler over the descending grid ``linspace(1, 1/N, N)``: a Langevin
@@ -17,6 +16,15 @@ hand-written kernel (``ops.fused_edge``) unless ``fused_edge=False`` is
 passed. This differs from the JAX package, whose config key
 ``fused_edge_sampling`` defaults to false; the port has no such key (the
 config reader drops it).
+
+The training half (``add_noise``, ``sample_losses``, ``kl_reg``,
+``rl_timestep_loss``, ``rl_chunk_loss``) always runs the f32 net on the
+plain edge path, as the JAX package trains its XLA net: the edge kernel has
+no backward. ``rl_chunk_loss`` sends its timesteps x crystals through one
+batched forward, as JAX's ``vmap`` does; the frozen prior's predictions come
+from a second module under ``torch.no_grad()`` (JAX's ``stop_gradient``).
+``add_noise`` takes its draws as ``NoiseDraws`` (JAX's exact draws in the
+tests) or makes them from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from matinvent_tpu_torch.models.mattergen.corruption import (
     WrappedCoordVE,
 )
 from matinvent_tpu_torch.models.mattergen.score_net import MatterGenScoreNet
+from matinvent_tpu_torch.ops.segment import graph_mean
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -93,6 +102,41 @@ class MatterGenConfig:
         return cls(**kw)
 
 
+class MGTargets(NamedTuple):
+    eps_cell: torch.Tensor  # [B, 3, 3]
+    score_pos: torch.Tensor  # [B, A, 3] sigma-scaled wrapped-normal score
+    x0_types: torch.Tensor  # [B, A] int ground-truth classes (0-based)
+
+
+class NoiseDraws(NamedTuple):
+    """The draws of ``add_noise``, with any leading axes before ``B``."""
+
+    cell: torch.Tensor  # [..., B, 3, 3] standard normal
+    pos: torch.Tensor  # [..., B, A, 3] standard normal
+    gumbel: torch.Tensor  # [..., B, A, V] standard Gumbel (type draw)
+
+
+def gumbel_like(
+    shape, generator: torch.Generator, device: torch.device | str
+) -> torch.Tensor:
+    """Standard Gumbel draw ``-log(-log(u))`` of ``shape``."""
+    u = torch.rand(shape, generator=generator, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+
+
+def noise_draws(
+    lead: tuple[int, ...], B: int, A: int, vocab: int, generator: torch.Generator,
+    device: torch.device | str,
+) -> NoiseDraws:
+    """``add_noise``'s draws for ``lead + (B, ...)`` from ``generator``."""
+    return NoiseDraws(
+        torch.randn((*lead, B, 3, 3), generator=generator, device=device),
+        torch.randn((*lead, B, A, 3), generator=generator, device=device),
+        gumbel_like((*lead, B, A, vocab), generator, device),
+    )
+
+
 class StepDraws(NamedTuple):
     cell: torch.Tensor  # [B, 3, 3] standard normal (predictor, cell)
     pos: torch.Tensor  # [B, A, 3] standard normal (predictor, coords)
@@ -133,9 +177,7 @@ class GeneratorNoise(NoiseSource):
         g = self.generator
         cell = torch.randn((B, 3, 3), generator=g, device=device)
         pos = torch.randn((B, A, 3), generator=g, device=device)
-        u = torch.rand((B, A, vocab), generator=g, device=device)
-        tiny = torch.finfo(torch.float32).tiny
-        gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+        gumbel = gumbel_like((B, A, vocab), g, device)
         corr = torch.randn((n_corrector, B, A, 3), generator=g, device=device)
         return StepDraws(cell, pos, gumbel, corr)
 
@@ -211,11 +253,143 @@ class MatterGenDiffusion(nn.Module):
             cond_mask=cond_mask, fused_edge=fused_edge, dtype=dtype,
         )
 
-    # --------------------------------------------------------------- sampling
     def time_grid(self) -> torch.Tensor:
         """Descending grid ``linspace(1, 1/N, N)`` in f32, rounded as the
         JAX package's ``jnp.linspace`` comes out of XLA (see ``time_grid``)."""
         return time_grid(self.config.timesteps).to(self.device)
+
+    # ------------------------------------------------------------- corruption
+    def add_noise(
+        self,
+        batch: CrystalBatch,
+        t_index: torch.Tensor | int,
+        draws: NoiseDraws | None = None,
+        generator: torch.Generator | None = None,
+    ) -> tuple[MGNoised, MGTargets, torch.Tensor]:
+        """Corrupt every field of ``batch`` at grid index ``t_index`` (an int
+        or ``[B]``), with ``draws`` or, when none are given, draws from
+        ``generator``."""
+        c = self.config
+        B, A = batch.batch_size, batch.max_atoms
+        dev = batch.frac_coords.device
+        if draws is None:
+            draws = noise_draws((), B, A, self.d3pm.vocab, generator, dev)
+        idx = torch.as_tensor(t_index, device=dev)
+        t = self.time_grid().to(dev)[idx].expand(B)
+
+        lattice_t, eps_cell, _ = self.cell_sde.sample_marginal(
+            batch.lattice, t, batch.num_atoms, draws.cell
+        )
+        frac_t, eps_pos, sigma = self.coord_ve.sample_marginal(
+            batch.frac_coords, t, draws.pos
+        )
+        # sigma-scaled score target: O(1) magnitudes
+        score_pos = self.coord_ve.score_target(eps_pos, sigma) * sigma
+        x0_types = torch.clamp(batch.atom_types.long() - 1, 0, self.d3pm.num_classes - 1)
+        types_t = self.d3pm.sample_marginal(x0_types, t, draws.gumbel)
+        time_emb = sinusoidal_time_embedding(t * c.timesteps, c.time_dim)
+        noised = MGNoised(t, time_emb, types_t, frac_t, lattice_t)
+        return noised, MGTargets(eps_cell, score_pos, x0_types), t
+
+    # ----------------------------------------------------------------- losses
+    def sample_losses(
+        self, noised: MGNoised, targets: MGTargets, num_atoms, mask,
+        conditions=None, cond_mask=None,
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """(weighted per-crystal loss ``[B]``, predictions) of the f32 net on
+        the plain edge path."""
+        c = self.config
+        preds = self.apply_net(noised, num_atoms, mask, conditions, cond_mask)
+        loss_cell, loss_pos, loss_types = self._field_losses(preds, targets, noised, mask)
+        loss = (
+            c.weight_cell * loss_cell + c.weight_pos * loss_pos
+            + c.weight_types * loss_types
+        )
+        return loss, preds
+
+    def _field_losses(self, preds, targets: MGTargets, noised: MGNoised, mask):
+        """Per-crystal (cell, pos, types) losses."""
+        loss_cell = torch.mean((preds["cell"] - targets.eps_cell) ** 2, dim=(1, 2))
+        loss_pos = graph_mean(torch.mean((preds["pos"] - targets.score_pos) ** 2, dim=-1), mask)
+        loss_types = self.d3pm.hybrid_loss(
+            targets.x0_types, noised.atom_types_t, preds["atomic_numbers"], noised.t,
+            mask, hybrid_lambda=self.config.d3pm_hybrid_lambda,
+        )
+        return loss_cell, loss_pos, loss_types
+
+    @staticmethod
+    def kl_reg(agent_pred, prior_pred, mask) -> torch.Tensor:
+        """``[B]`` squared distance of the agent's predictions from the
+        prior's, per field; the prior's are constants."""
+        prior_pred = {k: v.detach() for k, v in prior_pred.items()}
+        kl0 = torch.mean((agent_pred["cell"] - prior_pred["cell"]) ** 2, dim=(1, 2))
+        kl1 = graph_mean(torch.mean((agent_pred["pos"] - prior_pred["pos"]) ** 2, dim=-1), mask)
+        kl2 = graph_mean(
+            torch.mean((agent_pred["atomic_numbers"] - prior_pred["atomic_numbers"]) ** 2, dim=-1),
+            mask,
+        )
+        return kl0 + kl1 + kl2
+
+    def _rl_terms(
+        self, prior: "MatterGenDiffusion", batch: CrystalBatch, rewards: torch.Tensor,
+        t_indices: torch.Tensor, draws: NoiseDraws | None,
+        generator: torch.Generator | None, conditions,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(reward-weighted loss, KL term) ``[C, B]`` for the C grid indices
+        ``t_indices``, all through one batched forward of each net."""
+        C, B, A = len(t_indices), batch.batch_size, batch.max_atoms
+        dev = batch.frac_coords.device
+        if draws is None:
+            draws = noise_draws((C,), B, A, self.d3pm.vocab, generator, dev)
+        big = CrystalBatch(
+            atom_types=batch.atom_types.repeat(C, 1),
+            frac_coords=batch.frac_coords.repeat(C, 1, 1),
+            lattice=batch.lattice.repeat(C, 1, 1),
+            num_atoms=batch.num_atoms.repeat(C),
+        )
+        flat = NoiseDraws(*(d.reshape(C * B, *d.shape[2:]) for d in draws))
+        t_idx = torch.as_tensor(t_indices, device=dev).repeat_interleave(B)
+        cond = None if conditions is None else {k: v.repeat(C) for k, v in conditions.items()}
+        noised, targets, _ = self.add_noise(big, t_idx, flat)
+        mask = big.mask
+        loss, agent_pred = self.sample_losses(noised, targets, big.num_atoms, mask, cond)
+        with torch.no_grad():
+            prior_pred = prior.apply_net(noised, big.num_atoms, mask, cond)
+        kl = self.kl_reg(agent_pred, prior_pred, mask)
+        r = rewards.to(torch.float32).repeat(C)
+        loss_diff = r * loss
+        # (1.1 - reward) weights the KL, as the JAX package does
+        loss_kl = kl * (1.1 - r)
+        return loss_diff.reshape(C, B), loss_kl.reshape(C, B)
+
+    def rl_timestep_loss(
+        self, prior: "MatterGenDiffusion", batch: CrystalBatch, rewards: torch.Tensor,
+        t_index: int, sigma_kl: float, draws: NoiseDraws | None = None,
+        generator: torch.Generator | None = None, conditions=None,
+    ):
+        """Reward-weighted loss plus KL at one grid index: (mean over the
+        batch, (sum of the loss terms, sum of the KL terms)). ``draws`` have
+        no leading axis."""
+        if draws is not None:
+            draws = NoiseDraws(*(d[None] for d in draws))
+        ld, lk = self._rl_terms(
+            prior, batch, rewards, torch.tensor([int(t_index)]), draws, generator, conditions
+        )
+        return torch.mean(ld + lk * sigma_kl), (ld.sum(), lk.sum())
+
+    def rl_chunk_loss(
+        self, prior: "MatterGenDiffusion", batch: CrystalBatch, rewards: torch.Tensor,
+        t_indices: torch.Tensor, sigma_kl: float, draws: NoiseDraws | None = None,
+        generator: torch.Generator | None = None, conditions=None,
+    ):
+        """``rl_timestep_loss`` over the grid indices ``t_indices`` ``[C]``:
+        (mean of the per-timestep losses, summed loss and KL terms).
+        ``draws`` carry a leading ``C`` axis."""
+        ld, lk = self._rl_terms(prior, batch, rewards, t_indices, draws, generator, conditions)
+        per_t = torch.mean(ld + lk * sigma_kl, dim=1)
+        return torch.mean(per_t), (ld.sum(), lk.sum())
+
+    # --------------------------------------------------------------- sampling
 
     def _guided_preds(
         self, noised, num_atoms, mask, conditions, guidance, *, fused_edge, dtype

@@ -3,23 +3,49 @@
 Draws num-atoms from a dataset histogram on the host, splits the batch into
 size buckets (each padded to its own atom cap, so the dense O(A^2) edge work
 is not spent on padding), runs ``MatterGenDiffusion.sample_bucketed`` on the
-model's device and returns the crystals in draw order as a ``CrystalBatch``.
-Conversion to structures waits for the port of the pipeline.
+model's device and returns the crystals in draw order as a ``CrystalBatch``;
+``generate`` turns them into host-side sample dicts and ``Structure`` objects.
+Histograms beyond the built-in ones come from ``register_num_atoms_distribution``
+or from a JSON file (``num_atoms_distribution_file``).
 """
 from __future__ import annotations
 
 import functools
+import json
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from matinvent_tpu_torch.chem.structure import Structure
 from matinvent_tpu_torch.models.batch import CrystalBatch
 from matinvent_tpu_torch.models.mattergen.diffusion import MatterGenDiffusion
-from matinvent_tpu_torch.models.sample import ATOM_DIST
+from matinvent_tpu_torch.models.sample import ATOM_DIST, batch_to_structures
 
 NUM_ATOMS_DISTRIBUTIONS = {k: np.asarray(v, dtype=float) for k, v in ATOM_DIST.items()}
+
+
+def register_num_atoms_distribution(name: str, hist) -> None:
+    """Register (or replace) a num-atoms histogram: probabilities indexed by
+    atom count, or a ``{count: probability}`` mapping; normalized."""
+    if isinstance(hist, dict):
+        arr = np.zeros(max(int(k) for k in hist) + 1)
+        for k, v in hist.items():
+            arr[int(k)] = float(v)
+    else:
+        arr = np.asarray(hist, dtype=float)
+    if arr.sum() <= 0:
+        raise ValueError(f"histogram {name} has no mass")
+    NUM_ATOMS_DISTRIBUTIONS[name] = arr / arr.sum()
+
+
+def load_num_atoms_distributions(path: str) -> None:
+    """Register every histogram of a JSON file ``{name: hist}``."""
+    with open(path) as fh:
+        data = json.load(fh)
+    for name, hist in data.items():
+        register_num_atoms_distribution(name, hist)
 
 
 def _per_structure_eval_flops(cap: int, hidden: int = 256, nfreq: int = 10) -> float:
@@ -140,6 +166,8 @@ class MatterGenSampler:
     batch_size: int | None = None
     num_batches: int | None = None
     num_atoms_distribution: str = "mp_20"
+    # JSON file of {name: histogram} registered before the name is resolved
+    num_atoms_distribution_file: str | None = None
     max_atoms: int = 20
     # size buckets of the bucketed sampler; 1 samples one padded batch
     size_buckets: int = 1
@@ -151,6 +179,8 @@ class MatterGenSampler:
     _generator: torch.Generator | None = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
+        if self.num_atoms_distribution_file:
+            load_num_atoms_distributions(self.num_atoms_distribution_file)
         if self.num_atoms_distribution not in NUM_ATOMS_DISTRIBUTIONS:
             raise ValueError(
                 f"num_atoms_distribution must be one of "
@@ -237,6 +267,9 @@ class MatterGenSampler:
             num_atoms=nas[inv],
         )
 
-    def generate(self, model: MatterGenDiffusion, **kwargs) -> CrystalBatch:
-        """``launch`` with the result copied to the host."""
-        return self.launch(model, **kwargs).to("cpu")
+    def generate(
+        self, model: MatterGenDiffusion, **kwargs
+    ) -> Tuple[List[dict], List[Structure]]:
+        """``launch``, then the crystals on the host: per-crystal dicts and
+        ``Structure`` objects, in draw order."""
+        return batch_to_structures(self.launch(model, **kwargs))

@@ -19,6 +19,7 @@ from matinvent_tpu_torch.models.cspnet import (
     CSPLayer,
     layer_norm,
     linear,
+    matmul3,
     sinusoids_embedding,
 )
 from matinvent_tpu_torch.ops.segment import masked_mean
@@ -90,7 +91,7 @@ class MatterGenScoreNet(nn.Module):
         self.cond_emb = ConditionEmbedding(tuple(condition_fields), time_dim)
         self.atom_latent_emb = nn.Linear(H + time_dim, H)
         for i in range(num_layers):
-            setattr(self, f"layer_{i}", CSPLayer(H, num_freqs, ln=ln, ip=True))
+            setattr(self, f"layer_{i}", CSPLayer(H, num_freqs, ln=ln))
         self.final_norm = nn.LayerNorm(H, eps=LN_EPS) if ln else None
         self.pos_out = nn.Linear(H, 3, bias=False)
         self.cell_out = nn.Linear(H, 9, bias=False)
@@ -134,10 +135,12 @@ class MatterGenScoreNet(nn.Module):
             dist_emb = sinusoids_embedding(
                 frac_diff.to(torch.float32), self.num_freqs
             ).to(dtype)
+        # the layers' lattice inner products (ip=True), also once per eval
+        lattice_ips = matmul3(lattice, lattice.transpose(-1, -2))
 
         for i in range(self.num_layers):
             node = getattr(self, f"layer_{i}")(
-                node, frac_diff, lattice, edge_mask, denom, dist_emb=dist_emb,
+                node, frac_diff, lattice_ips, edge_mask, denom, dist_emb=dist_emb,
                 frac_coords=frac_coords, mask=mask, fused_edge=fused_edge,
                 dtype=dtype,
             )
@@ -152,7 +155,7 @@ class MatterGenScoreNet(nn.Module):
         graph = masked_mean(node.to(torch.float32), mask[..., None], axis=1)
         cell_raw = F.linear(graph, self.cell_out.weight).reshape(-1, 3, 3)
         cell_sym = 0.5 * (cell_raw + cell_raw.transpose(-1, -2))
-        cell_out = cell_sym @ lattice.to(torch.float32)
+        cell_out = matmul3(cell_sym, lattice)
 
         type_out = linear(self.type_out, node, dtype).to(torch.float32)
         return {"cell": cell_out, "pos": pos_out, "atomic_numbers": type_out}

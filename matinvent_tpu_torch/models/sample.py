@@ -1,8 +1,15 @@
-"""Num-atoms histograms of the training datasets (``matinvent_tpu/models/sample.py``).
+"""Sampler helpers shared by the model families (``matinvent_tpu/models/sample.py``).
 
-Dataset statistics, not code: probabilities indexed by atom count.
+The num-atoms histograms of the training datasets (dataset statistics, not
+code: probabilities indexed by atom count), and the conversions between a
+padded batch and host-side per-crystal dicts and ``Structure`` objects.
 """
 from __future__ import annotations
+
+from typing import List, Tuple
+
+from matinvent_tpu_torch.chem.structure import Structure
+from matinvent_tpu_torch.models.batch import CrystalBatch
 
 ATOM_DIST = {
     "perov_5": [0, 0, 0, 0, 0, 1],
@@ -23,3 +30,20 @@ ATOM_DIST = {
     # reference.extxyz, 2000 motif-based ionic structures)
     "matinvent_corpus": [0.0, 0.0, 0.5205, 0.2115, 0.268],
 }
+
+
+def batch_to_structures(batch: CrystalBatch) -> Tuple[List[dict], List[Structure]]:
+    """Split a padded batch into host per-crystal dicts and Structures."""
+    data_list = batch.to_lists()
+    strucs = [Structure(d["lattice"], d["atom_types"], d["frac_coords"]) for d in data_list]
+    return data_list, strucs
+
+
+def collate_data_list(data_list: List[dict], max_atoms: int) -> CrystalBatch:
+    """Host per-crystal dicts -> a padded (CPU) batch, for the fine-tune."""
+    return CrystalBatch.from_lists(
+        [d["atom_types"] for d in data_list],
+        [d["frac_coords"] for d in data_list],
+        [d["lattice"] for d in data_list],
+        max_atoms=max_atoms,
+    )

@@ -1,4 +1,4 @@
-"""Reader for the flat ``config.yaml`` that MatterGen checkpoints carry.
+"""Reader and writer for the flat ``config.yaml`` that MatterGen checkpoints carry.
 
 ``matinvent_tpu/models/suite/mattergen.py`` writes the model config with
 ``yaml.safe_dump`` as one ``key: value`` line per ``MatterGenConfig`` field.
@@ -8,6 +8,7 @@ and block sequences of scalars or of nested sequences under a key (the
 forms ``yaml.safe_dump`` writes for ``condition_fields`` and
 ``condition_stats``). It raises on what it cannot represent: mappings below
 the top level, block scalars, flow collections, anchors and tags.
+``write_flat_yaml`` writes such a file in ``yaml.safe_dump``'s block style.
 """
 from __future__ import annotations
 
@@ -122,3 +123,62 @@ def read_flat_yaml(path: str | Path) -> dict[str, Any]:
             raise ValueError(f"{path}:{lineno}: {err}") from None
         i += 1
     return out
+
+
+_PLAIN = re.compile(r"^[A-Za-z_][A-Za-z0-9_.\-]*$")
+
+
+def _scalar_text(v: Any) -> str:
+    """``v`` as ``yaml.safe_load`` reads it back."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        # YAML 1.1 reads an exponent without a dot as a string
+        if "e" in text and "." not in text:
+            text = text.replace("e", ".0e")
+        return text
+    s = str(v)
+    if _PLAIN.match(s) and parse_scalar(s) == s:
+        return s
+    return "'" + s.replace("'", "''") + "'"
+
+
+def _sequence_lines(items, indent: int) -> list[str]:
+    pad = " " * indent
+    if not items:
+        return [pad + "- []"]
+    out = []
+    for it in items:
+        if isinstance(it, (list, tuple)):
+            nested = _sequence_lines(it, indent + 2)
+            out.append(pad + "- " + nested[0].lstrip(" "))
+            out.extend(nested[1:])
+        else:
+            out.append(pad + "- " + _scalar_text(it))
+    return out
+
+
+def write_flat_yaml(path: str | Path, values: dict[str, Any]) -> None:
+    """Write ``{key: scalar or (nested) sequence}`` with sorted keys, as
+    ``yaml.safe_dump`` lays it out."""
+    lines = []
+    for key in sorted(values):
+        v = values[key]
+        if isinstance(v, (list, tuple)):
+            if not v:
+                lines.append(f"{key}: []")
+            else:
+                lines.append(f"{key}:")
+                lines.extend(_sequence_lines(v, 0))
+        else:
+            lines.append(f"{key}: {_scalar_text(v)}")
+    Path(path).write_text("\n".join(lines) + "\n")

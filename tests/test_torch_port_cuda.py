@@ -222,3 +222,86 @@ def test_harness_kernels_reject_what_they_do_not_take():
         fused_edge_flat.flat_edge_mlp(flat[0][:-1].contiguous(), *flat[1:])
     with pytest.raises(ValueError):  # embedding of the wrong cap
         fused_edge_flat.demb_edge(demb[0], demb[1], demb[2][:, :3].contiguous(), *demb[3:])
+
+
+def _chunk_inputs(model, na, A, C, seed):
+    """A padded batch with atom counts ``na``, rewards and ``C`` timesteps'
+    draws, all from numpy."""
+    from matinvent_tpu_torch.models.batch import CrystalBatch
+    from matinvent_tpu_torch.models.mattergen.diffusion import NoiseDraws
+
+    rng = np.random.default_rng(seed)
+    B = len(na)
+    mask = np.arange(A)[None, :] < np.asarray(na)[:, None]
+    batch = CrystalBatch(
+        torch.tensor(np.where(mask, rng.integers(1, 101, (B, A)), 0), dtype=torch.int32),
+        torch.tensor(rng.uniform(size=(B, A, 3)) * mask[..., None], dtype=torch.float32),
+        torch.tensor(np.eye(3) * 5 + rng.normal(size=(B, 3, 3)), dtype=torch.float32),
+        torch.tensor(na, dtype=torch.int32),
+    )
+    draws = NoiseDraws(
+        torch.tensor(rng.normal(size=(C, B, 3, 3)), dtype=torch.float32),
+        torch.tensor(rng.normal(size=(C, B, A, 3)), dtype=torch.float32),
+        torch.tensor(rng.gumbel(size=(C, B, A, model.d3pm.vocab)), dtype=torch.float32),
+    )
+    return batch, torch.tensor(rng.uniform(size=B), dtype=torch.float32), draws
+
+
+def test_chunk_loss_and_gradients_on_card_match_cpu_at_odd_atom_counts():
+    """The fine-tune's chunk on the card against the same code on the CPU,
+    at odd atom counts: only the summation order differs, so the loss and
+    every gradient agree within 1e-4 of their scale."""
+    _need_card()
+    torch.manual_seed(1)
+    cfg = MatterGenConfig(hidden_dim=64, num_layers=2, time_dim=32, timesteps=20)
+    cpu, prior_cpu = (MatterGenDiffusion(cfg, device="cpu") for _ in range(2))
+    card, prior_card = (MatterGenDiffusion(cfg, device="cuda") for _ in range(2))
+    card.load_state_dict(cpu.state_dict())
+    prior_card.load_state_dict(prior_cpu.state_dict())
+    t_idx = torch.arange(5, 10)
+    batch, rewards, draws = _chunk_inputs(cpu, [1, 13, 7, 3, 11], 13, len(t_idx), seed=2)
+    results = []
+    for model, prior, dev in ((cpu, prior_cpu, "cpu"), (card, prior_card, "cuda")):
+        loss, _ = model.rl_chunk_loss(
+            prior, batch.to(dev), rewards.to(dev), t_idx.to(dev), 0.1,
+            draws=type(draws)(*(d.to(dev) for d in draws)),
+        )
+        loss.backward()
+        results.append((loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (l_cpu, g_cpu), (l_card, g_card) = results
+    assert abs(l_card - l_cpu) <= 1e-4 * max(1.0, abs(l_cpu))
+    for k, g in g_cpu.items():
+        scale = max(g.abs().max().item(), 1e-12)
+        assert (g_card[k] - g).abs().max().item() <= 1e-4 * scale, k
+
+
+def test_geometry_products_ignore_tf32():
+    """With TF32 allowed for matmuls, the cell Gram matrix and the cell
+    score's right coupling still equal their float64 result rounded to f32."""
+    _need_card()
+    from matinvent_tpu_torch.models.cspnet import matmul3
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        lat = 4.0 * torch.eye(3, device="cuda") + torch.randn((256, 3, 3), generator=g, device="cuda")
+        sym = torch.randn((256, 3, 3), generator=g, device="cuda")
+        for a, b in ((lat, lat.transpose(-1, -2)), (sym, lat)):
+            ref = (a.double() @ b.double()).float()
+            assert torch.equal(matmul3(a, b), ref)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_native_charge_balance_builds_and_agrees_on_the_card_machine():
+    _need_card()
+    from matinvent_tpu_torch.chem.data import ELECTRONEGATIVITY, OXIDATION_STATES
+    from matinvent_tpu_torch.chem.validity import charge_balanced, charge_balanced_plain
+
+    rng = np.random.default_rng(0)
+    syms = sorted(s for s, ox in OXIDATION_STATES.items() if ox)
+    for _ in range(2000):
+        el = list(rng.choice(syms, int(rng.integers(2, 5)), replace=False))
+        counts = [int(c) for c in rng.integers(1, 7, len(el))]
+        args = ([OXIDATION_STATES[s] for s in el], counts, [ELECTRONEGATIVITY.get(s) for s in el])
+        assert charge_balanced(*args) == charge_balanced_plain(*args), (el, counts)
