@@ -26,11 +26,19 @@ launch counts set to 0 just before and read just after:
   checkpoint at T=1000 through the kernel, their SMACT, structural and
   cell-size failure shares held against the JAX package's record in
   ``experiments/results/validity_curve_r5.json``;
+* the sample filter's metrics (phase ``opt_filter``): ``OptEval`` with the
+  exact disordered matcher on those 512 crystals against the 36,000
+  structures of ``experiments/data/corpus_r5.extxyz``, and the native fit
+  (``csrc/structure_fit.cpp``) against its plain version on 64 of them;
 * two RL iterations of the ``rl_hhi_rich5`` recipe, built by the entry
   point ``matinvent_tpu_torch.pipeline.mat_invent`` (``resolve``, ``build``)
-  and run one ``MatInvent.rl_step`` at a time (phase ``rl``): sample,
+  (phase ``rl``): iteration 0 by ``run_rl``, which saves the run state,
+  then iteration 1 by a fresh ``MatInvent`` resumed from it: sample,
   filter, HHI reward, memory and replay, fine-tune; 12,000 kernel launches
-  in each iteration's sampling.
+  in each iteration's sampling;
+* two iterations of the same recipe with ``async_sampling`` (phase
+  ``rl_async``): iteration 1's batch is sampled in the sampling thread
+  while the host scores iteration 0.
 
 Kernel times are device times (CUDA graph replay, ``experiments/timing.py``).
 Each phase prints one JSON line (the harnesses print their own records
@@ -38,8 +46,8 @@ too); the line before the last is the ``{"kernels": [...]}`` record and the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that line. It needs one CUDA card;
 without one it exits non-zero at once. It writes the kernel builds
-(``matinvent_tpu_torch/_build/``) and, for phase ``rl``, a temporary
-directory that it removes.
+(``matinvent_tpu_torch/_build/``) and, for phases ``rl`` and ``rl_async``,
+temporary directories that it removes.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -60,6 +69,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from matinvent_tpu_torch.chem.matcher import (
+    DisorderedExactStructureMatcher,
+    DisorderedStructureMatcher,
+)
 from matinvent_tpu_torch.chem.validity import cell_size_ok, smact_valid, structure_validity
 from matinvent_tpu_torch.csrc.build import build, build_host
 from matinvent_tpu_torch.experiments import fused_edge_ab, fused_edge_flat
@@ -78,6 +91,8 @@ from matinvent_tpu_torch.models.suite.mattergen import load_model
 from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain, fused_edge_chain_plain
 from matinvent_tpu_torch.parallel.train import FinetuneStep
 from matinvent_tpu_torch.pipeline import mat_invent
+from matinvent_tpu_torch.pipeline.filters import OptEval, ReferenceDataset
+from matinvent_tpu_torch.utils.checkpoint import load_run_state
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "experiments/results/rl_hhi_rich5/models/final"
@@ -90,6 +105,12 @@ RL_METRICS = ROOT / "experiments/results/rl_hhi_rich5/metrics.csv"
 VALIDITY_RECORD = {"smact_fail": 0.2988, "structural_fail": 0.0234, "cell_fail": 0.0,
                    "all_ok": 0.6875, "n": 512}
 VALIDITY_BATCH, VALIDITY_SEED = 512, 1
+# phase opt_filter: the novelty reference and hull, the JAX package's
+# (relaxed) record, and the native-against-plain gate's sizes
+CORPUS = ROOT / "experiments/data/corpus_r5.extxyz"
+CORPUS_ENERGIES = ROOT / "experiments/data/corpus_r5_energies.json"
+GEN_EVAL_RECORD = ROOT / "experiments/results/gen_eval_1024_r5_metrics.json"
+GATE_N, GATE_REF = 64, 1000
 # the fine-tune chunk (16 crystals x 25 timesteps, rl_profile.chunk_inputs)
 # at grid indices 500..524, the recipe's lr and KL weight
 FT_CHUNK, FT_LR, FT_SIGMA = 20, 1e-4, 0.1
@@ -97,6 +118,7 @@ FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 DEV = "cuda"
 BATCH, BUCKETS, MAX_ATOMS, SEED = 256, 4, 20, 0
 SOURCES = ("fused_edge", "edge_flat")  # csrc/<name>.cu
+HOST_SOURCES = ("charge_balance", "structure_fit")  # csrc/<name>.cpp, g++
 # (crystals, cap) of the harness kernels' checks: the harnesses' full width
 # (bench.py's dominant bucket) and an odd shape (81,200 and 1,183 flat rows)
 EDGE_SHAPES = [(203, 20), (7, 13)]
@@ -247,10 +269,10 @@ def phase_build() -> dict:
     """Builds every source at once, one nvcc each; every instance must
     compile without spills."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
-        host = pool.submit(build_host, "charge_balance")
+    with ThreadPoolExecutor(len(SOURCES) + len(HOST_SOURCES)) as pool:
+        hosts = [pool.submit(build_host, name) for name in HOST_SOURCES]
         built = dict(zip(SOURCES, pool.map(build, SOURCES)))
-        host = host.result()
+        hosts = dict(zip(HOST_SOURCES, (h.result() for h in hosts)))
     libraries = {
         name: dict(library=str(b.path.relative_to(ROOT)), nvcc_seconds=b.seconds,
                    instances=ptxas_report(b.log, _smem_query(name, b.lib)))
@@ -263,7 +285,8 @@ def phase_build() -> dict:
             if inst.get("spill_bytes", 1) != 0:
                 raise AssertionError(f"{inst['instance']} spills: {inst}")
     rec = dict(phase="build", seconds=time.perf_counter() - t0, libraries=libraries,
-               host_library=str(host.path.relative_to(ROOT)), gxx_seconds=host.seconds)
+               host_libraries={name: dict(library=str(h.path.relative_to(ROOT)),
+                                          gxx_seconds=h.seconds) for name, h in hosts.items()})
     emit(rec)
     return rec
 
@@ -642,6 +665,47 @@ def phase_validity(model) -> dict:
                jax_record=VALIDITY_RECORD, four_sigma=four_sigma,
                seconds=time.perf_counter() - t0)
     emit(rec)
+    return rec, strucs
+
+
+def phase_opt_filter(strucs) -> dict:
+    """``OptEval`` with the exact disordered matcher on phase ``validity``'s
+    512 crystals against the 36,000-structure corpus (unrelaxed, so the
+    JAX package's relaxed record is printed beside it, not compared); then
+    the gate: on the first 64 crystals the native fit's unique and novel
+    masks equal its plain version's, against 1,000 corpus structures."""
+    t0 = time.perf_counter()
+    ref = ReferenceDataset.from_files(str(CORPUS), str(CORPUS_ENERGIES))
+    load_seconds = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    metrics, kept = OptEval(structure_matcher="disordered", relax=False, reference=ref)(strucs)
+    eval_seconds = time.perf_counter() - t1
+    with open(GEN_EVAL_RECORD) as fh:
+        record = json.load(fh)
+    head, corpus_slice = strucs[:GATE_N], ref.structures[:GATE_REF]
+    gate = {}
+    for native in (True, False):
+        m = DisorderedStructureMatcher(DisorderedExactStructureMatcher(use_native=native))
+        t2 = time.perf_counter()
+        feats = m.features(head)
+        masks = (m.unique_mask(head, feats), m.novel_mask(head, corpus_slice, feats))
+        gate["native" if native else "plain"] = (masks, time.perf_counter() - t2)
+    for i, name in enumerate(("unique", "novel")):
+        if not np.array_equal(gate["native"][0][i], gate["plain"][0][i]):
+            raise AssertionError(f"{name}_mask: native fit differs from its plain version")
+    if not all(0.0 <= v <= 1.0 for v in metrics.values()) or not kept:
+        raise AssertionError(f"OptEval metrics out of range: {metrics}")
+    rec = dict(
+        phase="opt_filter", n=len(strucs), evaluated=len(kept), reference=len(ref.structures),
+        **{k: metrics.get(k) for k in ("frac_validity", "frac_unique", "frac_novel")},
+        reference_load_seconds=load_seconds, eval_seconds=eval_seconds,
+        jax_relaxed_record={k: record[k] for k in ("frac_validity", "frac_unique", "frac_novel")},
+        gate_n=GATE_N, gate_reference=GATE_REF,
+        gate_unique=int(gate["native"][0][0].sum()), gate_novel=int(gate["native"][0][1].sum()),
+        gate_native_seconds=gate["native"][1], gate_plain_seconds=gate["plain"][1],
+        seconds=time.perf_counter() - t0,
+    )
+    emit(rec)
     return rec
 
 
@@ -659,15 +723,58 @@ class LogRecords(logging.Handler):
         return [float(v) for m in self.messages for v in re.findall(pattern, m)]
 
 
+def _iteration(pipe, log: LogRecords, run) -> dict:
+    """Runs ``run()`` (one RL iteration) with the launch count set to 0
+    just before and read just after; the iteration's values from its
+    metrics row and the pipeline's log."""
+    log.messages.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_edge_chain.launches = 0
+    run()
+    torch.cuda.synchronize()
+    launches = fused_edge_chain.launches
+    row = pipe.logger.rows[-1]
+    losses = log.numbers(r"loss\w*: (\S+?)(?:,|$)")
+    it = dict(
+        step=int(row["step"]), kernel_launches=launches,
+        valid=int(log.numbers(r"Number of valid samples: (\d+)")[0]),
+        reward_mean=row.get("reward mean"),
+        finetune_batch=int(log.numbers(r"Fine-tune batch: (\d+)")[0]),
+        finetune_losses=losses, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        **{k: row.get(k) for k in ("time_sample_s", "time_score_s", "time_finetune_s")},
+    )
+    if len(losses) != 3 * pipe.finetuner.epochs or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"iteration {it['step']}: fine-tune losses {losses}")
+    return it
+
+
+def _equal_tables(a: list, b: list) -> bool:
+    """Memory or replay rows equal field by field (structures and the
+    per-crystal dicts by their arrays)."""
+    def same(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if hasattr(x, "frac_coords"):
+            return all(np.array_equal(getattr(x, f), getattr(y, f))
+                       for f in ("lattice", "species", "frac_coords"))
+        if isinstance(x, np.ndarray):
+            return np.array_equal(x, y)
+        return x == y
+
+    return len(a) == len(b) and all(same(r, q) for r, q in zip(a, b))
+
+
 def phase_rl(start_sd: dict) -> dict:
-    """Two iterations of the rl_hhi_rich5 recipe, built as the entry point
-    builds it and run one ``rl_step`` at a time on the card, into a
-    temporary directory: 12,000 kernel launches in each iteration's
-    sampling, every fine-tune loss finite, the prior unchanged, the second
-    iteration sampling from the updated agent, the JAX run's metrics.csv
-    columns, the memory and sample files, and a saved checkpoint equal to
-    the agent. The per-iteration values come from the metrics rows and the
-    pipeline's log."""
+    """The rl_hhi_rich5 recipe as the entry point builds it, on the card,
+    in a temporary directory: iteration 0 by ``run_rl`` (which saves the run
+    state), then a fresh ``MatInvent`` resumed from that state runs
+    iteration 1. The resumed agent equals the saved one bit for bit before
+    its first step, the step continues at 1, the memory and replay tables
+    equal the saved ones; each iteration launches 12,000 edge kernels, every
+    fine-tune loss is finite, the prior is unchanged, iteration 1 samples
+    from the updated agent, ``metrics.csv`` has the JAX run's columns, and
+    ``models/final`` (``params.msgpack`` included) equals the agent."""
     t0 = time.perf_counter()
     out = tempfile.mkdtemp(prefix="chip_smoke_rl_")
     iters: list[dict] = []
@@ -676,55 +783,113 @@ def phase_rl(start_sd: dict) -> dict:
     root.setLevel(logging.INFO)
     root.addHandler(log)
     try:
-        pipe = mat_invent.build(mat_invent.resolve("rl_hhi_rich5", 2), out)
+        pipe = mat_invent.build(mat_invent.resolve("rl_hhi_rich5", 1), out)
         c = pipe.agent.config
         expected = c.num_layers * (1 + c.n_corrector) * c.timesteps
-        for step in range(pipe.rl_epoch):
-            pipe.step = step
-            log.messages.clear()
-            at_start = all(torch.equal(v.cpu(), start_sd[k])
-                           for k, v in pipe.agent.state_dict().items())
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            fused_edge_chain.launches = 0
-            pipe.rl_step()
-            torch.cuda.synchronize()
-            launches = fused_edge_chain.launches
-            row = pipe.logger.rows[-1]
-            losses = log.numbers(r"loss\w*: (\S+?)(?:,|$)")
-            iters.append(dict(
-                step=step, kernel_launches=launches, agent_is_start_checkpoint=at_start,
-                valid=int(log.numbers(r"Number of valid samples: (\d+)")[0]),
-                reward_mean=row.get("reward mean"),
-                finetune_batch=int(log.numbers(r"Fine-tune batch: (\d+)")[0]),
-                finetune_losses=losses,
-                peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                **{k: row.get(k) for k in ("time_sample_s", "time_score_s", "time_finetune_s")},
-            ))
-            if launches != expected:
-                raise AssertionError(f"iteration {step}: {launches} launches, not {expected}")
-            if len(losses) != 3 * pipe.finetuner.epochs or not all(map(math.isfinite, losses)):
-                raise AssertionError(f"iteration {step}: fine-tune losses {losses}")
+        at_start = all(torch.equal(v.cpu(), start_sd[k]) for k, v in pipe.agent.state_dict().items())
+        iters.append(dict(_iteration(pipe, log, pipe.run_rl), agent_is_start_checkpoint=at_start))
+        saved = {k: v.cpu().clone() for k, v in pipe.agent.state_dict().items()}
+        if not pipe.state_save_freq == 1 or not (Path(out) / "state/run_state.json").is_file():
+            raise AssertionError("iteration 0 saved no run state")
+        t1 = time.perf_counter()
+        state = load_run_state(str(Path(out) / "state"))
+        load_seconds = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        resumed = mat_invent.build(
+            mat_invent.resolve("rl_hhi_rich5", 2, ["pipeline.resume=true"]), out)
+        build_seconds = time.perf_counter() - t1
+        if state is None or resumed._start_step != 1 or state[1]["step"] != 0:
+            raise AssertionError(f"the resumed run starts at step {resumed._start_step}, not 1")
+        if any(not torch.equal(v.cpu(), saved[k]) for k, v in resumed.agent.state_dict().items()):
+            raise AssertionError("the resumed agent differs from the saved one")
+        if not (_equal_tables(resumed.ltm.memory, pipe.ltm.memory)
+                and _equal_tables(resumed.replay.buffer, pipe.replay.buffer)):
+            raise AssertionError("the resumed memory or replay tables differ from the saved ones")
+        del pipe
+        at_start = all(torch.equal(v.cpu(), start_sd[k])
+                       for k, v in resumed.agent.state_dict().items())
+        iters.append(dict(_iteration(resumed, log, resumed.run_rl),
+                          agent_is_start_checkpoint=at_start))
+        for it in iters:
+            if it["kernel_launches"] != expected:
+                raise AssertionError(f"iteration {it['step']}: {it['kernel_launches']} "
+                                     f"launches, not {expected}")
+        if [it["step"] for it in iters] != [0, 1]:
+            raise AssertionError(f"steps {[it['step'] for it in iters]}, not [0, 1]")
         if [it["agent_is_start_checkpoint"] for it in iters] != [True, False]:
             raise AssertionError("the second iteration did not sample from the updated agent")
-        if any(not torch.equal(v.cpu(), start_sd[k]) for k, v in pipe.prior.state_dict().items()):
+        if any(not torch.equal(v.cpu(), start_sd[k])
+               for k, v in resumed.prior.state_dict().items()):
             raise AssertionError("the prior changed")
         with open(Path(out) / "metrics.csv") as fh, open(RL_METRICS) as ref:
             header, ref_header = fh.readline().strip(), ref.readline().strip()
-        if header != ref_header:
-            raise AssertionError(f"metrics.csv columns {header} != {ref_header}")
+            rows = len(fh.readlines())
+        if header != ref_header or rows != 2:
+            raise AssertionError(f"metrics.csv columns {header} != {ref_header} or {rows} rows")
         for name in ("long_term_memory.csv", "step_0000_eval.extxyz", "step_0001_eval.extxyz"):
             if not (Path(out) / "samples" / name).is_file():
                 raise AssertionError(f"{name} was not written")
-        pipe.model_suite.save_model(pipe.agent, Path(out) / "models/final")
-        final = load_model(Path(out) / "models/final", device=DEV)
-        if any(not torch.equal(v, pipe.agent.state_dict()[k]) for k, v in final.state_dict().items()):
+        final_dir = Path(out) / "models/final"
+        if not (final_dir / "params.msgpack").is_file():
+            raise AssertionError("models/final/params.msgpack was not written")
+        final = load_model(final_dir, device=DEV)
+        if any(not torch.equal(v, resumed.agent.state_dict()[k])
+               for k, v in final.state_dict().items()):
             raise AssertionError("the final checkpoint differs from the agent")
     finally:
         root.removeHandler(log)
         root.setLevel(level)
         shutil.rmtree(out, ignore_errors=True)
-    rec = dict(phase="rl", recipe="rl_hhi_rich5", iterations=iters,
+    rec = dict(phase="rl", recipe="rl_hhi_rich5", iterations=iters, resumed_at_step=1,
+               state_load_seconds=load_seconds, resumed_build_seconds=build_seconds,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def phase_rl_async() -> dict:
+    """Two rl_hhi_rich5 iterations with ``async_sampling``: both launches
+    run in the sampling thread, the second submitted during iteration 0 (so
+    iteration 1's batch is the pending launch, sampled with the
+    pre-fine-tune-0 weights); 12,000 edge kernels each."""
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_rl_async_")
+    root = logging.getLogger()
+    level, log = root.level, LogRecords()
+    root.setLevel(logging.INFO)
+    root.addHandler(log)
+    try:
+        pipe = mat_invent.build(
+            mat_invent.resolve("rl_hhi_rich5", 2, ["pipeline.async_sampling=true"]), out)
+        c = pipe.agent.config
+        expected = c.num_layers * (1 + c.n_corrector) * c.timesteps
+        launches_seen: list[tuple[int, str]] = []
+        launch = pipe._launch_sampling
+
+        def recorded():
+            launches_seen.append((pipe.step, threading.current_thread().name))
+            return launch()
+
+        pipe._launch_sampling = recorded
+        iters = []
+        for step in range(pipe.rl_epoch):
+            pipe.step = step
+            iters.append(_iteration(pipe, log, pipe.rl_step))
+        pipe._sampling_pool.shutdown(wait=True)
+        total = sum(it["kernel_launches"] for it in iters)
+        if total != 2 * expected:
+            raise AssertionError(f"async iterations launched {total}, not {2 * expected}")
+        if len(launches_seen) != 2 or any(s != 0 or not t.startswith("sampling")
+                                          for s, t in launches_seen):
+            raise AssertionError(f"launches (step, thread): {launches_seen}")
+        if pipe._pending is not None:
+            raise AssertionError("a launch is pending after the last iteration")
+    finally:
+        root.removeHandler(log)
+        root.setLevel(level)
+        shutil.rmtree(out, ignore_errors=True)
+    rec = dict(phase="rl_async", recipe="rl_hhi_rich5", iterations=iters,
+               launches=[dict(step=s, thread=t) for s, t in launches_seen],
                seconds=time.perf_counter() - t0)
     emit(rec)
     return rec
@@ -760,9 +925,11 @@ def main() -> int:
     phase_finetune()
     model = load_model(START, device=DEV)
     start_sd = {k: v.cpu().clone() for k, v in model.state_dict().items()}
-    valid = phase_validity(model)
+    valid, strucs = phase_validity(model)
     del model
+    phase_opt_filter(strucs)
     rl = phase_rl(start_sd)
+    rl_async = phase_rl_async()
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     b = kern["buckets"]
     common = dict(route="cuda", impl="cuda", checked=True)
@@ -774,6 +941,7 @@ def main() -> int:
         launches_bf16=samp_bf16["kernel_launches"],
         launches_validity=valid["kernel_launches"],
         launches_rl=[it["kernel_launches"] for it in rl["iterations"]],
+        launches_rl_async=[it["kernel_launches"] for it in rl_async["iterations"]],
         max_abs_err=kern["max_abs_err_f32"],
         max_abs_err_bf16=kern["max_abs_err_bf16"],
         # one layer-eval of the batch: the sum over the bucket shapes, f32

@@ -8,12 +8,22 @@ carries them:
 * ``OXIDATION_STATES``: common oxidation states (ICSD-style lists, as
   SMACT-like charge-balance screens use);
 * ``METALS``: the metals of SMACT's alloy exception;
-* ``HHI_RESERVE``: Herfindahl-Hirschman index of elemental reserves, Gaultois
-  et al., Chem. Mater. 2013, 25, 2911-2920 (the dataset pymatgen's
-  ``HHIModel`` ships). Elements absent from the dataset are missing, so a
-  composition holding one scores NaN.
+* ``CRUSTAL_ABUNDANCE_PPM``: CRC Handbook crustal abundances (ppm by mass),
+  the dataset SMACT's ``crustal_abundance`` carries;
+* ``HHI_PRODUCTION`` / ``HHI_RESERVE``: Herfindahl-Hirschman index of
+  elemental production and reserves, Gaultois et al., Chem. Mater. 2013, 25,
+  2911-2920 (the dataset pymatgen's ``HHIModel`` ships). Elements absent from
+  the dataset are missing, so a composition holding one scores NaN;
+* ``ELEMENT_PRICE_USD_PER_KG``: approximate prices, overridden at import by
+  the public table ``element_price.csv`` beside this module.
+
+Every table but the first four takes a ``<name>.csv`` override beside this
+module (``load_table_override``).
 """
 from __future__ import annotations
+
+import csv
+import os
 
 SYMBOLS = [
     "X",
@@ -114,6 +124,44 @@ METALS = set(
     Ta W Re Os Ir Pt Au Hg Tl Pb Bi Po Fr Ra Ac Th Pa U Np Pu Am Cm""".split()
 )
 
+CRUSTAL_ABUNDANCE_PPM = {
+    "O": 461000.0, "Si": 282000.0, "Al": 82300.0, "Fe": 56300.0, "Ca": 41500.0,
+    "Na": 23600.0, "Mg": 23300.0, "K": 20900.0, "Ti": 5650.0, "H": 1400.0,
+    "P": 1050.0, "Mn": 950.0, "F": 585.0, "Ba": 425.0, "Sr": 370.0, "S": 350.0,
+    "C": 200.0, "Zr": 165.0, "Cl": 145.0, "V": 120.0, "Cr": 102.0, "Rb": 90.0,
+    "Ni": 84.0, "Zn": 70.0, "Ce": 66.5, "Cu": 60.0, "Nd": 41.5, "La": 39.0,
+    "Y": 33.0, "Co": 25.0, "Sc": 22.0, "Li": 20.0, "Nb": 20.0, "N": 19.0,
+    "Ga": 19.0, "Pb": 14.0, "B": 10.0, "Th": 9.6, "Pr": 9.2, "Sm": 7.05,
+    "Gd": 6.2, "Dy": 5.2, "Er": 3.5, "Yb": 3.2, "Hf": 3.0, "Cs": 3.0,
+    "Be": 2.8, "U": 2.7, "Br": 2.4, "Sn": 2.3, "Eu": 2.0, "Ta": 2.0,
+    "As": 1.8, "Ge": 1.5, "Ho": 1.3, "W": 1.25, "Tb": 1.2, "Mo": 1.2,
+    "Tl": 0.85, "Lu": 0.8, "Tm": 0.52, "I": 0.45, "In": 0.25, "Sb": 0.2,
+    "Cd": 0.15, "Hg": 0.085, "Ag": 0.075, "Se": 0.05, "Pd": 0.015,
+    "Bi": 0.0085, "Pt": 0.005, "Au": 0.004, "Os": 0.0015, "Ir": 0.001,
+    "Ru": 0.001, "Rh": 0.001, "Te": 0.001, "Re": 0.0007,
+}
+
+# Herfindahl-Hirschman index of elemental supply concentration (0..10000,
+# higher = more concentrated supply)
+HHI_PRODUCTION = {
+    "H": 1200.0, "Li": 2900.0, "Be": 8000.0, "B": 2900.0, "C": 500.0,
+    "N": 1300.0, "O": 500.0, "F": 7000.0, "Na": 1100.0, "Mg": 5300.0,
+    "Al": 1600.0, "Si": 4700.0, "P": 2000.0, "S": 700.0, "Cl": 1500.0,
+    "K": 1700.0, "Ca": 3900.0, "Sc": 5500.0, "Ti": 1100.0, "V": 3300.0,
+    "Cr": 3100.0, "Mn": 1600.0, "Fe": 2400.0, "Co": 3100.0, "Ni": 1000.0,
+    "Cu": 1600.0, "Zn": 1600.0, "Ga": 5500.0, "Ge": 5300.0, "As": 3300.0,
+    "Se": 2200.0, "Br": 3300.0, "Rb": 6000.0, "Sr": 4200.0, "Y": 9800.0,
+    "Zr": 3400.0, "Nb": 8500.0, "Mo": 2400.0, "Ru": 3200.0, "Rh": 3200.0,
+    "Pd": 3200.0, "Ag": 1200.0, "Cd": 1700.0, "In": 3300.0, "Sn": 2600.0,
+    "Sb": 7900.0, "Te": 2900.0, "I": 4900.0, "Cs": 6000.0, "Ba": 3000.0,
+    "La": 9500.0, "Ce": 9500.0, "Pr": 9500.0, "Nd": 9500.0, "Sm": 9500.0,
+    "Eu": 9500.0, "Gd": 9500.0, "Tb": 9500.0, "Dy": 9500.0, "Ho": 9500.0,
+    "Er": 9500.0, "Tm": 9500.0, "Yb": 9500.0, "Lu": 9500.0, "Hf": 3400.0,
+    "Ta": 2300.0, "W": 7000.0, "Re": 3300.0, "Os": 5500.0, "Ir": 5500.0,
+    "Pt": 5500.0, "Au": 1100.0, "Hg": 5500.0, "Tl": 6500.0, "Pb": 2700.0,
+    "Bi": 5300.0,
+}
+
 HHI_RESERVE = {
     "H": 500.0, "Li": 4200.0, "Be": 4000.0, "B": 2300.0, "C": 500.0,
     "N": 500.0, "O": 500.0, "F": 1500.0, "Na": 500.0, "Mg": 500.0,
@@ -132,3 +180,42 @@ HHI_RESERVE = {
     "Pt": 9100.0, "Au": 1000.0, "Hg": 3100.0, "Tl": 6500.0, "Pb": 1800.0,
     "Bi": 6000.0,
 }
+
+# Approximate element prices in USD/kg (screening-grade; override with
+# element_price.csv for production use).
+ELEMENT_PRICE_USD_PER_KG = {
+    "H": 1.4, "He": 24.0, "Li": 85.0, "Be": 850.0, "B": 3.7, "C": 0.12,
+    "N": 0.14, "O": 0.15, "F": 2.0, "Na": 3.0, "Mg": 2.3, "Al": 1.8,
+    "Si": 1.7, "P": 2.7, "S": 0.1, "Cl": 0.15, "K": 12.0, "Ca": 2.3,
+    "Sc": 3500.0, "Ti": 11.0, "V": 25.0, "Cr": 9.4, "Mn": 1.8, "Fe": 0.1,
+    "Co": 33.0, "Ni": 14.0, "Cu": 9.0, "Zn": 2.5, "Ga": 280.0, "Ge": 1000.0,
+    "As": 1.2, "Se": 22.0, "Br": 4.4, "Rb": 15000.0, "Sr": 6.6, "Y": 31.0,
+    "Zr": 36.0, "Nb": 73.0, "Mo": 40.0, "Ru": 10000.0, "Rh": 147000.0,
+    "Pd": 50000.0, "Ag": 800.0, "Cd": 2.7, "In": 240.0, "Sn": 25.0,
+    "Sb": 12.0, "Te": 64.0, "I": 35.0, "Cs": 61000.0, "Ba": 0.26,
+    "La": 4.9, "Ce": 4.7, "Pr": 95.0, "Nd": 110.0, "Sm": 14.0, "Eu": 280.0,
+    "Gd": 55.0, "Tb": 1300.0, "Dy": 350.0, "Ho": 160.0, "Er": 95.0,
+    "Tm": 3000.0, "Yb": 170.0, "Lu": 4500.0, "Hf": 900.0, "Ta": 300.0,
+    "W": 35.0, "Re": 1600.0, "Os": 12000.0, "Ir": 160000.0, "Pt": 30000.0,
+    "Au": 60000.0, "Hg": 30.0, "Tl": 4200.0, "Pb": 2.0, "Bi": 6.0,
+    "Th": 290.0, "U": 100.0,
+}
+
+
+def load_table_override(name: str, table: dict) -> dict:
+    """``table`` with the rows of ``<name>.csv`` beside this module
+    (``symbol,value``; other rows are skipped) merged over it."""
+    path = os.path.join(os.path.dirname(__file__), f"{name}.csv")
+    if not os.path.exists(path):
+        return table
+    out = dict(table)
+    with open(path) as fh:
+        for row in csv.reader(fh):
+            if len(row) >= 2 and row[0] in Z_BY_SYMBOL:
+                out[row[0]] = float(row[1])
+    return out
+
+
+HHI_PRODUCTION = load_table_override("hhi_production", HHI_PRODUCTION)
+HHI_RESERVE = load_table_override("hhi_reserve", HHI_RESERVE)
+ELEMENT_PRICE_USD_PER_KG = load_table_override("element_price", ELEMENT_PRICE_USD_PER_KG)

@@ -18,6 +18,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from matinvent_tpu_torch.chem.niggli import niggli_reduce
 from matinvent_tpu_torch.chem.structure import Structure
 from matinvent_tpu_torch.models.batch import CrystalBatch
 from matinvent_tpu_torch.models.mattergen.diffusion import MatterGenDiffusion
@@ -173,6 +174,8 @@ class MatterGenSampler:
     size_buckets: int = 1
     diffusion_guidance_factor: float = 0.0
     properties_to_condition_on: Dict[str, float] | None = None
+    # Niggli-reduce the cells of the structures ``generate`` returns
+    niggli_reduction: bool = False
     seed: int = 0
     # False runs the sampling net's plain edge branch instead of the kernel
     fused_edge: bool = True
@@ -271,5 +274,9 @@ class MatterGenSampler:
         self, model: MatterGenDiffusion, **kwargs
     ) -> Tuple[List[dict], List[Structure]]:
         """``launch``, then the crystals on the host: per-crystal dicts and
-        ``Structure`` objects, in draw order."""
-        return batch_to_structures(self.launch(model, **kwargs))
+        ``Structure`` objects, in draw order (the structures' cells
+        Niggli-reduced with ``niggli_reduction``)."""
+        data, strucs = batch_to_structures(self.launch(model, **kwargs))
+        if self.niggli_reduction:
+            strucs = [niggli_reduce(s) for s in strucs]
+        return data, strucs

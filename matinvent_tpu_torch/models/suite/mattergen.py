@@ -4,8 +4,9 @@ A checkpoint directory holds ``config.yaml`` (one ``key: value`` line per
 ``MatterGenConfig`` field) and ``state_dict.npz`` (torch-layout weights
 under ``decoder.``). The port builds ``MatterGenDiffusion`` from the first
 and loads the second with ``load_state_dict(strict=True)``; ``save_model``
-writes both, in the layout the JAX package writes and reads.
-``params.msgpack`` (flax serialization) is not written.
+writes both and ``params.msgpack``, the flax tree of the JAX package's
+``MatterGenDiffusion`` in flax's serialization (``utils/msgpack.py``), which
+is what the JAX suite loads.
 
 ``params_from_jax`` turns the JAX package's flax parameter tree (as numpy)
 into the same state dict, by the naming rules of
@@ -29,6 +30,7 @@ from matinvent_tpu_torch.models.mattergen.diffusion import (
 )
 from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
 from matinvent_tpu_torch.parallel.train import FinetuneStep
+from matinvent_tpu_torch.utils import msgpack
 from matinvent_tpu_torch.utils.config import read_flat_yaml, write_flat_yaml
 
 # condition fields per pretrained variant
@@ -147,11 +149,14 @@ def load_model(
 
 
 def save_model(model: MatterGenDiffusion, save_dir: str | Path) -> None:
-    """``state_dict.npz`` and ``config.yaml`` of ``model`` in ``save_dir``,
-    as the JAX package writes them (``config.yaml`` also carries the JAX
-    config's ``fused_edge_sampling: false``, which the port ignores)."""
+    """``params.msgpack``, ``state_dict.npz`` and ``config.yaml`` of
+    ``model`` in ``save_dir``, as the JAX package writes them
+    (``config.yaml`` also carries the JAX config's ``fused_edge_sampling:
+    false``, which the port ignores)."""
     os.makedirs(save_dir, exist_ok=True)
     sd = {k: v.detach().cpu().numpy() for k, v in sorted(model.state_dict().items())}
+    with open(os.path.join(save_dir, "params.msgpack"), "wb") as fh:
+        fh.write(msgpack.packb(params_to_jax(sd, model)))
     np.savez(os.path.join(save_dir, "state_dict.npz"), **sd)
     cfg = {f: getattr(model.config, f) for f in MatterGenConfig.__dataclass_fields__}
     cfg["fused_edge_sampling"] = False
@@ -208,7 +213,7 @@ class MatterGenSuite:
 
     def get_sampler(self) -> MatterGenSampler:
         s = self.sample_cfg
-        for key in ("niggli_reduction", "target_compositions_dict", "record_trajectories"):
+        for key in ("target_compositions_dict", "record_trajectories"):
             if s.get(key):
                 raise NotImplementedError(f"sample_cfg {key!r} is not ported")
         return MatterGenSampler(
@@ -219,6 +224,7 @@ class MatterGenSuite:
             max_atoms=s.get("max_atoms", 20),
             diffusion_guidance_factor=s.get("diffusion_guidance_factor", 0.0),
             properties_to_condition_on=s.get("properties_to_condition_on"),
+            niggli_reduction=s.get("niggli_reduction", False),
             seed=self.seed,
         )
 

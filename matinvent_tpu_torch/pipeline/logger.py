@@ -2,8 +2,9 @@
 
 ``CSVLogger`` rewrites ``<save_dir>/<fname>.csv`` after every row, with the
 columns in the order they first appear, as the JAX package's pandas logger
-writes them (an empty field where a row has no value). ``PhaseTimer`` times
-the phases of an RL iteration. The wandb logger is not ported.
+writes them (an empty field where a row has no value); it starts from the
+rows of an existing file, so a resumed run appends to them. ``PhaseTimer``
+times the phases of an RL iteration. The wandb logger is not ported.
 """
 from __future__ import annotations
 
@@ -79,6 +80,14 @@ class CSVLogger(Logger):
         os.makedirs(save_dir, exist_ok=True)
         self.rows: list[dict] = []
         self.columns: list[str] = []
+        existing = os.path.join(save_dir, f"{fname}.csv")
+        if os.path.exists(existing):
+            with open(existing, newline="") as fh:
+                reader = csv.reader(fh)
+                self.columns = next(reader, [])
+                self.rows = [
+                    {c: v for c, v in zip(self.columns, r) if v != ""} for r in reader
+                ]
 
     def log(self, update_dict: dict, step: int, split: str = "") -> None:
         row = dict(super().log(update_dict, step, split))

@@ -1,23 +1,30 @@
 """MatInvent: the RL loop (``matinvent_tpu/pipeline/mat_invent.py``), and the
 port's entry point.
 
-Per RL iteration: sample -> invalid filter -> cap at ``max_num`` -> save
-extxyz -> reward -> long-term memory and its metrics -> diversity filter ->
-top-k -> experience replay -> reward-weighted fine-tune of the agent against
-the frozen prior -> periodic checkpoint. Sampling and the fine-tune run on
-the model's device; everything else on the host.
+Per RL iteration: sample -> invalid filter -> ``OptFilter`` (optional) ->
+cap at ``max_num`` -> save extxyz -> reward -> long-term memory and its
+metrics -> diversity filter -> top-k -> experience replay -> reward-weighted
+fine-tune of the agent against the frozen prior -> run state and periodic
+checkpoint. Sampling and the fine-tune run on the model's device; everything
+else on the host.
 
-Only the reward-weighted fine-tune is ported: DDPO, asynchronous sampling,
-resume and run state, the profiler, MLIP relaxation and ``OptFilter`` raise
-when asked for.
+Options, as the JAX package has them: ``resume`` continues from the run
+state under ``<save_dir>/state`` (saved every ``state_save_freq`` steps and
+on the last), ``profile_dir`` writes a ``torch.profiler`` Chrome trace of
+the first ``profile_steps`` iterations, and ``async_sampling`` samples
+iteration t+1 with the pre-fine-tune-t weights while the host filters and
+scores iteration t. DDPO and MLIP relaxation (``sample_cfg.mlip_opt``)
+raise ``NotImplementedError``.
 
     python -m matinvent_tpu_torch.pipeline.mat_invent --recipe rl_hhi_rich5 \\
-        --rl-epoch 2 --out runs/hhi [--device cpu] [--set key.path=value ...]
+        --rl-epoch 2 --out runs/hhi [--reward NAME] [--device cpu] \\
+        [--set key.path=value ...]
 
 runs a recipe of ``recipes.py`` on the card (or on the CPU with ``--device
-cpu``), writing ``hparams.json``, ``metrics.csv``, ``samples/`` and
-``models/`` under ``--out``. ``--set`` overrides one value of the recipe
-(the value read as JSON, else as a string).
+cpu``), writing ``hparams.json``, ``metrics.csv``, ``samples/``, ``models/``
+and ``state/`` under ``--out``. ``--set`` overrides one value of the recipe
+(the value read as JSON, else as a string); ``--set pipeline.resume=true``
+continues a run in the same ``--out``.
 """
 from __future__ import annotations
 
@@ -28,21 +35,28 @@ import logging
 import os
 import sys
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from matinvent_tpu_torch.models.sample import collate_data_list
+from matinvent_tpu_torch.models.sample import batch_to_structures, collate_data_list
 from matinvent_tpu_torch.models.suite.mattergen import MatterGenSuite
+from matinvent_tpu_torch.ops import fused_edge
 from matinvent_tpu_torch.pipeline.base import ReinL
-from matinvent_tpu_torch.pipeline.filters import invalid_filter
+from matinvent_tpu_torch.pipeline.filters import build_filter, invalid_filter
 from matinvent_tpu_torch.pipeline.logger import CSVLogger, Logger, setup_logging
 from matinvent_tpu_torch.pipeline.save import save_structures
-from matinvent_tpu_torch.recipes import RECIPES, REPO_PATHS
+from matinvent_tpu_torch.recipes import RECIPES, REPO_PATHS, REWARDS
 from matinvent_tpu_torch.rewards.calculators.empirical import Empirical
 from matinvent_tpu_torch.rewards.reward import Reward
+from matinvent_tpu_torch.utils.checkpoint import (
+    load_run_state,
+    save_run_state,
+    set_generator_state,
+)
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -66,27 +80,26 @@ class MatInvent(ReinL):
         seed: int = 0,
         resume: bool = False,
         profile_dir: str | None = None,
+        profile_steps: int = 1,
         async_sampling: bool = False,
-        state_save_freq: int | None = None,
+        state_save_freq: int = 1,
         finetune_mode: str = "reward_weighted",
     ) -> None:
-        not_ported = dict(
-            resume=resume, profile_dir=profile_dir, async_sampling=async_sampling,
-            state_save_freq=state_save_freq,
-            ddpo=finetune_mode != "reward_weighted",
-        )
-        asked = [k for k, v in not_ported.items() if v]
-        if asked:
-            raise NotImplementedError(f"not ported: {asked}")
+        if finetune_mode not in ("reward_weighted", "ddpo"):
+            raise ValueError(f"unknown finetune_mode {finetune_mode!r}")
+        if finetune_mode == "ddpo":
+            if async_sampling:
+                raise ValueError("ddpo finetuning is incompatible with async_sampling")
+            raise NotImplementedError("the ddpo fine-tune is not ported")
         super().__init__(
             rl_epoch=rl_epoch, model_suite=model_suite, reward=reward,
             sample_cfg=sample_cfg, finetune_cfg=finetune_cfg, save_dir=save_dir,
             save_freq=save_freq, logger=logger, replay=replay, replay_args=replay_args,
             seed=seed,
         )
-        for key in ("filter", "mlip_opt"):
-            if self.sample_cfg.get(key):
-                raise NotImplementedError(f"sample_cfg {key!r} is not ported")
+        if self.sample_cfg.get("mlip_opt"):
+            raise NotImplementedError("sample_cfg 'mlip_opt' (MLIP relaxation) is not ported")
+        self.filter = build_filter(self.sample_cfg.get("filter"))
         if not 0.0 < topk_ratio <= 1.0:
             raise ValueError(f"topk_ratio must be in (0, 1], got {topk_ratio}")
         self.topk_ratio = topk_ratio
@@ -98,24 +111,92 @@ class MatInvent(ReinL):
         # sampler's (seeded with ``seed``)
         self.generator = torch.Generator(device=self.agent.device).manual_seed(seed + 1)
 
+        # iteration t+1's sampling runs in a worker thread, launched before
+        # the host filters and scores iteration t and joined before the
+        # fine-tune writes the weights; every launch goes through the thread
+        self.async_sampling = async_sampling
+        self._sampling_pool: ThreadPoolExecutor | None = None
+        self._pending: Future | None = None
+        if async_sampling:
+            if self.agent.device.type == "cuda" and self.sampler.fused_edge:
+                fused_edge._launch_fn()  # build and load the kernel before the thread
+            self._sampling_pool = ThreadPoolExecutor(1, thread_name_prefix="sampling")
+
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
+
+        self.state_save_freq = max(int(state_save_freq), 1)
+        self.state_dir = os.path.join(save_dir, "state")
+        self._start_step = 0
+        if resume:
+            self._try_resume()
+
+    def _try_resume(self):
+        loaded = load_run_state(self.state_dir)
+        if loaded is None:
+            logging.info("resume requested but no run state found; starting fresh")
+            return
+        sd, host, tables = loaded
+        self.agent.load_state_dict(sd, strict=True)
+        self._start_step = host["step"] + 1
+        self.cost = host["cost"]
+        self.sampler._rng.bit_generator.state = host["sampler"]["rng"]
+        if host["sampler"]["generator"] is not None:
+            set_generator_state(self.sampler._generator_for(self.agent.device),
+                                host["sampler"]["generator"])
+        set_generator_state(self.generator, host["finetune_generator"])
+        if self.replay is not None and tables["replay"] is not None:
+            self.replay.buffer = tables["replay"]
+            self.replay._rng.bit_generator.state = host["replay_rng"]
+        self.ltm.memory = tables["ltm"]
+        self.ltm.unique_comps = list(dict.fromkeys(row["comp"] for row in self.ltm.memory))
+        logging.info(f"resumed run state at step {self._start_step}")
+
+    def _save_state(self):
+        save_run_state(self.state_dir, self.agent, self.step, self.cost, self.sampler,
+                       self.generator, self.ltm, self.replay)
+
     def load_model(self):
         """The agent, trained, and the prior, frozen: two loads of one
         checkpoint."""
         self.agent = self.model_suite.load_model()
         self.prior = self.model_suite.load_model().requires_grad_(False)
 
-    def sample_step(self):
-        sample_data, sample_struc = self.sampler.generate(
+    def _launch_sampling(self):
+        return self.sampler.launch(
             self.agent,
             batch_size=self.sample_cfg.get("batch_size"),
             num_batches=self.sample_cfg.get("num_batches"),
         )
+
+    def sample_step(self):
+        if self.async_sampling:
+            current = self._pending or self._sampling_pool.submit(self._launch_sampling)
+            # queue the next iteration's sampling before any host work, but
+            # for the last iteration, whose batch would go unused
+            self._pending = (
+                self._sampling_pool.submit(self._launch_sampling)
+                if self.step + 1 < self.rl_epoch else None
+            )
+            sample_data, sample_struc = batch_to_structures(current.result())
+        else:
+            sample_data, sample_struc = self.sampler.generate(
+                self.agent,
+                batch_size=self.sample_cfg.get("batch_size"),
+                num_batches=self.sample_cfg.get("num_batches"),
+            )
         for i, d in enumerate(sample_data):
             d["batch_index"] = i
         if self.sample_cfg.get("invalid_filter", True):
             sample_data, sample_struc = invalid_filter(sample_data, sample_struc)
         logging.info(f"Number of valid samples: {len(sample_struc)}")
         save_structures(sample_struc, self.sample_dir, f"step_{self.step:0>4d}_valid.extxyz")
+        metrics = {}
+        if self.filter is not None:
+            sample_data, sample_struc, metrics = self.filter(sample_data, sample_struc, None)
+            logging.info(f"Number of filtered samples: {len(sample_struc)}")
+        if metrics:
+            logging.info(", ".join(f"{k}: {v:.6f}" for k, v in metrics.items()))
         max_num = self.sample_cfg.get("max_num")
         if max_num and len(sample_struc) > max_num:
             sample_data = sample_data[:max_num]
@@ -123,7 +204,7 @@ class MatInvent(ReinL):
         eval_xyz_path = save_structures(
             sample_struc, self.sample_dir, f"step_{self.step:0>4d}_eval.extxyz"
         )
-        return sample_data, sample_struc, eval_xyz_path, {}
+        return sample_data, sample_struc, eval_xyz_path, metrics
 
     def ft_step(self, data_list: List[dict], rewards: np.ndarray):
         if len(data_list) == 0:
@@ -207,6 +288,10 @@ class MatInvent(ReinL):
             ft_data, ft_reward = sample_topk, reward_topk
 
         with self.timer.phase("finetune"):
+            if self._pending is not None:
+                # the pending launch samples with these weights: wait for it
+                # (re-raising its exception) before the fine-tune writes them
+                self._pending.result()
             self.ft_step(ft_data, ft_reward)
 
         log_dict.update(self.timer.pop())
@@ -216,14 +301,48 @@ class MatInvent(ReinL):
         logging.info(f"Total time taken: {(time.time() - start_time) / 60:.2f} min.")
 
     def run_rl(self):
-        for step in range(self.rl_epoch):
-            self.step = step
-            self.rl_step()
-            if (step + 1) % self.save_freq == 0:
-                self.model_suite.save_model(
-                    self.agent, os.path.join(self.models_dir, f"loop_{step:0>4d}")
-                )
+        logging.info("*****   RL START   *****")
+        start_time = time.time()
+        profiler = None
+        try:
+            for step in range(self._start_step, self.rl_epoch):
+                self.step = step
+                if self.profile_dir and step == self._start_step:
+                    profiler = self._start_profiler()
+                self.rl_step()
+                if profiler is not None and step + 1 >= self._start_step + self.profile_steps:
+                    self._stop_profiler(profiler)
+                    profiler = None
+                # the run state every state_save_freq steps and on the last
+                if (step + 1) % self.state_save_freq == 0 or step + 1 == self.rl_epoch:
+                    self._save_state()
+                if (step + 1) % self.save_freq == 0:
+                    self.model_suite.save_model(
+                        self.agent, os.path.join(self.models_dir, f"loop_{step:0>4d}")
+                    )
+        finally:
+            if profiler is not None:
+                self._stop_profiler(profiler)
+            if self._sampling_pool is not None:
+                self._sampling_pool.shutdown(wait=True, cancel_futures=True)
         self.model_suite.save_model(self.agent, os.path.join(self.models_dir, "final"))
+        logging.info("*****   RL END   *****")
+        logging.info(f"Total time taken: {int(time.time() - start_time)} s.")
+
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.agent.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> None:
+        profiler.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, f"trace_step{self._start_step:0>4d}.json")
+        profiler.export_chrome_trace(path)
+        logging.info(f"profiler trace written to {path}")
 
 
 def _set(cfg: dict, dotted: str, value) -> None:
@@ -263,10 +382,15 @@ def build(cfg: dict, out: str, device: str | None = None) -> MatInvent:
     return MatInvent(model_suite=suite, reward=reward, logger=logger, **pipe)
 
 
-def resolve(recipe: str, rl_epoch: int | None = None, overrides=()) -> dict:
-    """A recipe with ``--set`` overrides and ``rl_epoch`` applied, and its
-    repository paths made absolute."""
+def resolve(
+    recipe: str, rl_epoch: int | None = None, overrides=(), reward: str | None = None
+) -> dict:
+    """A recipe with the reward section ``reward`` of ``REWARDS`` (if given),
+    ``--set`` overrides and ``rl_epoch`` applied, and its repository paths
+    made absolute."""
     cfg = copy.deepcopy(RECIPES[recipe])
+    if reward is not None:
+        cfg["reward"] = copy.deepcopy(REWARDS[reward])
     for item in overrides:
         key, _, text = item.partition("=")
         _set(cfg, key, _parse_value(text))
@@ -275,8 +399,8 @@ def resolve(recipe: str, rl_epoch: int | None = None, overrides=()) -> dict:
     for path in REPO_PATHS:
         node = cfg
         for p in path[:-1]:
-            node = node[p]
-        if node.get(path[-1]) is not None:
+            node = node.get(p) if isinstance(node, dict) else None
+        if isinstance(node, dict) and node.get(path[-1]) is not None:
             node[path[-1]] = str(ROOT / node[path[-1]])
     return cfg
 
@@ -285,12 +409,14 @@ def main(argv: list[str] | None = None) -> MatInvent:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--recipe", default="rl_hhi_rich5", choices=sorted(RECIPES))
     parser.add_argument("--rl-epoch", type=int, default=None)
+    parser.add_argument("--reward", default=None, choices=sorted(REWARDS),
+                        help="a reward section of recipes.REWARDS instead of the recipe's")
     parser.add_argument("--out", required=True)
     parser.add_argument("--device", default=None, help="cpu to run on the CPU")
     parser.add_argument("--set", action="append", default=[], metavar="KEY.PATH=VALUE")
     args = parser.parse_args(argv)
     setup_logging()
-    cfg = resolve(args.recipe, args.rl_epoch, args.set)
+    cfg = resolve(args.recipe, args.rl_epoch, args.set, args.reward)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "hparams.json"), "w") as fh:
         json.dump(cfg, fh, indent=2)

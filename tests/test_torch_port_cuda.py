@@ -305,3 +305,46 @@ def test_native_charge_balance_builds_and_agrees_on_the_card_machine():
         counts = [int(c) for c in rng.integers(1, 7, len(el))]
         args = ([OXIDATION_STATES[s] for s in el], counts, [ELECTRONEGATIVITY.get(s) for s in el])
         assert charge_balanced(*args) == charge_balanced_plain(*args), (el, counts)
+
+
+def test_cuda_generator_state_round_trips_through_the_run_state():
+    _need_card()
+    from matinvent_tpu_torch.utils.checkpoint import generator_state, set_generator_state
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    torch.rand(1000, generator=gen, device="cuda")
+    text = generator_state(gen)
+    expect = torch.randn(4096, generator=gen, device="cuda")
+    fresh = torch.Generator(device="cuda").manual_seed(0)
+    set_generator_state(fresh, text)
+    assert torch.equal(torch.randn(4096, generator=fresh, device="cuda"), expect)
+
+
+def test_resumed_matinvent_on_the_card_has_the_saved_weights(tmp_path):
+    """One tiny iteration on the card saves its run state; a fresh
+    ``MatInvent`` resumed from it holds the agent bit for bit, the sampler's
+    CUDA generator state and the step after the saved one, and runs on."""
+    _need_card()
+    from matinvent_tpu_torch.pipeline import mat_invent
+    from matinvent_tpu_torch.utils.checkpoint import generator_state
+
+    tiny = [
+        "model.model_path=null", "model.model_cfg.hidden_dim=32",
+        "model.model_cfg.num_layers=2", "model.model_cfg.time_dim=16",
+        "model.model_cfg.timesteps=10", "model.model_cfg.sample_clip=15.0",
+        "model.finetune_cfg.timesteps=10", "pipeline.finetune_cfg.accum_steps=5",
+        "pipeline.finetune_cfg.epochs=1", "model.sample_cfg.batch_size=6",
+        "pipeline.sample_cfg.invalid_filter=false",
+    ]
+    first = mat_invent.build(mat_invent.resolve("rl_hhi_rich5", 1, tiny), str(tmp_path), "cuda")
+    first.run_rl()
+    resumed = mat_invent.build(
+        mat_invent.resolve("rl_hhi_rich5", 2, [*tiny, "pipeline.resume=true"]), str(tmp_path), "cuda"
+    )
+    assert resumed._start_step == 1 and resumed.agent.device.type == "cuda"
+    for k, v in first.agent.state_dict().items():
+        assert torch.equal(resumed.agent.state_dict()[k], v), k
+    assert generator_state(resumed.sampler._generator) == generator_state(first.sampler._generator)
+    assert generator_state(resumed.generator) == generator_state(first.generator)
+    resumed.run_rl()
+    assert (tmp_path / "models/final/params.msgpack").is_file()

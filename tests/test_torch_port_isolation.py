@@ -1,6 +1,7 @@
-"""The port stands alone: it imports torch, numpy and the standard library
-only, never JAX, flax, PyYAML or ``matinvent_tpu`` (the card machine has none
-of them), and ``chip_smoke.py`` fails cleanly where it cannot run."""
+"""The port stands alone: it imports torch, numpy, scipy and the standard
+library only, never JAX, flax, PyYAML, pandas, msgpack or ``matinvent_tpu``
+(the card machine has none of the first five), and ``chip_smoke.py`` fails
+cleanly where it cannot run."""
 from __future__ import annotations
 
 import ast
@@ -13,14 +14,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "matinvent_tpu_torch"
-ALLOWED = {"torch", "numpy", "matinvent_tpu_torch"} | set(sys.stdlib_module_names)
+ALLOWED = {"torch", "numpy", "scipy", "matinvent_tpu_torch"} | set(sys.stdlib_module_names)
 
 # a meta-path finder that refuses the modules the card machine lacks; the
 # exact top-level name, so matinvent_tpu_torch still imports
 BLOCKER = textwrap.dedent(
     """
     import sys
-    BLOCKED = {"jax", "jaxlib", "flax", "yaml", "matinvent_tpu"}
+    BLOCKED = {"jax", "jaxlib", "flax", "yaml", "pandas", "msgpack", "matinvent_tpu"}
 
     class Blocker:
         def find_spec(self, name, path=None, target=None):

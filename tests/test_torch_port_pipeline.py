@@ -167,8 +167,8 @@ def test_validity_filter_and_rewards_equal_jax_on_reference_and_garbage(tmp_path
     # the HHI reward alone: failures, and exact ties at both clip ends
     r, _, failed = rewards("p", Empirical, Reward, [prop])
     assert failed.any() and (r == 0).sum() > 10 and (r == 1).sum() > 10
-    with pytest.raises(NotImplementedError):
-        Empirical(str(tmp_path / "x"), task="price")
+    with pytest.raises(ValueError):
+        Empirical(str(tmp_path / "x"), task="bandgap")
 
 
 def test_native_charge_balance_against_plain_and_jax():
@@ -374,8 +374,11 @@ def test_entry_point_runs_one_tiny_iteration_on_the_cpu(tmp_path):
     assert len(pipe.replay) > 0
 
 
-@pytest.mark.parametrize("option", ["resume=true", "async_sampling=true",
-                                    "finetune_mode=\"ddpo\"", "sample_cfg.filter=\"opt\""])
+@pytest.mark.parametrize("option", [
+    "finetune_mode=\"ddpo\"", "sample_cfg.mlip_opt=true",
+    "sample_cfg.filter={\"metrics\": [\"validity\", \"synthesizable\"]}",
+    "sample_cfg.filter={\"metrics\": [\"validity\"], \"relaxer\": \"mlip\"}",
+])
 def test_options_not_ported_raise(tmp_path, option):
     cfg = mat_invent.resolve("rl_hhi_rich5", 1, [a for a in TINY if a != "--set"]
                              + [f"pipeline.{option}"])
