@@ -38,7 +38,15 @@ launch counts set to 0 just before and read just after:
   in each iteration's sampling;
 * two iterations of the same recipe with ``async_sampling`` (phase
   ``rl_async``): iteration 1's batch is sampled in the sampling thread
-  while the host scores iteration 0.
+  while the host scores iteration 0;
+* the device-side reward models (phase ``predictor``): the six in-repo
+  property predictors, their ten tasks and SynScore on the card, held
+  against the JAX package's values
+  (``matinvent_tpu_torch/experiments/results/reward_models_jax.json``),
+  their time per call at batch 64 and 512, and 20 ``PredictorTrainer``
+  steps at full width, the first against the CPU;
+* two RL iterations of the ``rl_mag_rich_dense`` recipe (phase
+  ``rl_mag``), rewarded by the magnetic-density predictor on the card.
 
 Kernel times are device times (CUDA graph replay, ``experiments/timing.py``).
 Each phase prints one JSON line (the harnesses print their own records
@@ -73,6 +81,8 @@ from matinvent_tpu_torch.chem.matcher import (
     DisorderedExactStructureMatcher,
     DisorderedStructureMatcher,
 )
+from matinvent_tpu_torch.chem.proxy_labels import label_structures
+from matinvent_tpu_torch.chem.structure import Structure, read_extxyz
 from matinvent_tpu_torch.chem.validity import cell_size_ok, smact_valid, structure_validity
 from matinvent_tpu_torch.csrc.build import build, build_host
 from matinvent_tpu_torch.experiments import fused_edge_ab, fused_edge_flat
@@ -90,8 +100,11 @@ from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
 from matinvent_tpu_torch.models.suite.mattergen import load_model
 from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain, fused_edge_chain_plain
 from matinvent_tpu_torch.parallel.train import FinetuneStep
+from matinvent_tpu_torch.parallel.train_predictor import PredictorTrainer, labeled_batches
 from matinvent_tpu_torch.pipeline import mat_invent
 from matinvent_tpu_torch.pipeline.filters import OptEval, ReferenceDataset
+from matinvent_tpu_torch.rewards.calculators import PropertyPredictor, SynScore
+from matinvent_tpu_torch.rewards.calculators.predictor import TASK_MODEL_DICT, PropertyGNN
 from matinvent_tpu_torch.utils.checkpoint import load_run_state
 
 ROOT = Path(__file__).resolve().parent
@@ -114,6 +127,15 @@ GATE_N, GATE_REF = 64, 1000
 # the fine-tune chunk (16 crystals x 25 timesteps, rl_profile.chunk_inputs)
 # at grid indices 500..524, the recipe's lr and KL weight
 FT_CHUNK, FT_LR, FT_SIGMA = 20, 1e-4, 0.1
+# phase predictor: the JAX package's values on the corpus head and the
+# degenerate structures; card against JAX: each model within 1e-4 of its
+# y_std (TF32 off), SynScore within 1e-6
+REWARD_RECORD = ROOT / "matinvent_tpu_torch/experiments/results/reward_models_jax.json"
+PRED_TOL, SYN_TOL = 1e-4, 1e-6
+PRED_BATCHES, PRED_REPEATS = (64, 512), 7
+# the trainer: 20 steps at H=128/L=4, batch 64, proxy labels of the corpus
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_MODEL = 20, 64, "mp_total_mag_per_atom"
+RL_MAG_METRICS = ROOT / "experiments/results/rl_mag_rich_dense/metrics.csv"
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 DEV = "cuda"
 BATCH, BUCKETS, MAX_ATOMS, SEED = 256, 4, 20, 0
@@ -895,6 +917,192 @@ def phase_rl_async() -> dict:
     return rec
 
 
+def record_structures(record: dict) -> list[Structure]:
+    """The structures of the JAX record: the corpus head, then the
+    degenerate ones it stores."""
+    head = read_extxyz(str(ROOT / record["corpus"]), limit=record["n_corpus"])
+    return head + [Structure(np.asarray(r["lattice"], float), np.asarray(r["species"]),
+                             np.asarray(r["frac_coords"], float)) for r in record["degenerate"]]
+
+
+def check_values(ours, ref, atol, rtol, what: str) -> float:
+    """Max |ours - ref| on the finite entries; raises past ``atol + rtol
+    |ref|`` or where NaN or inf differ."""
+    a, b = np.asarray(ours, float), np.asarray(ref, float)
+    fin = np.isfinite(b)
+    if not (np.array_equal(np.isfinite(a), fin)
+            and np.array_equal(a[~fin], b[~fin], equal_nan=True)):
+        raise AssertionError(f"{what}: NaN or inf entries differ from JAX")
+    err = np.abs(a[fin] - b[fin])
+    if (err > atol + rtol * np.abs(b[fin])).any():
+        raise AssertionError(f"{what}: card vs JAX {err.max()} > {atol} + {rtol} |ref|")
+    return float(err.max(initial=0.0))
+
+
+def median_ms(fn, repeats: int) -> float:
+    """Median wall milliseconds of ``fn()``, synchronized, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def phase_predictor() -> dict:
+    """The six in-repo predictors loaded on the card (each ``loaded``),
+    their raw outputs within 1e-4 of ``y_std`` of the JAX record, the ten
+    tasks within 1e-4 relative of it (plus 1e-4 of the task's largest
+    value: a derived task multiplies two predictions), SynScore within
+    1e-6; each model's time per call at batch 64 and 512 (the call as the
+    reward makes it, host batching included, and its device forward
+    alone); then 20 trainer steps at full width, the first step's loss
+    against the CPU's (1e-4 relative), every loss finite and the last five
+    below the first five."""
+    t0 = time.perf_counter()
+    with open(REWARD_RECORD) as fh:
+        record = json.load(fh)
+    strucs = record_structures(record)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_predictor_")
+    try:
+        calc = PropertyPredictor(tmp, device=DEV)
+        tasks_of = {m: t for t, m in TASK_MODEL_DICT.items() if m}
+        load_seconds, raw_err, models = {}, {}, {}
+        for name, task in tasks_of.items():
+            t1 = time.perf_counter()
+            gnn = calc._model(task)
+            torch.cuda.synchronize()
+            load_seconds[name] = time.perf_counter() - t1
+            if not gnn.loaded or gnn.device.type != torch.device(DEV).type:
+                raise AssertionError(f"{name}: not loaded on the card")
+            models[name] = gnn
+            raw_err[name] = check_values(gnn.predict(strucs), record["raw"][name],
+                                         PRED_TOL * gnn.y_std, 0.0, name) / gnn.y_std
+        task_err = {}
+        for task in TASK_MODEL_DICT:
+            calc.task = task
+            ref = np.asarray(record["tasks"][task], float)
+            scale = np.abs(ref[np.isfinite(ref)]).max()
+            task_err[task] = check_values(calc.calc((strucs, None), task), ref,
+                                          PRED_TOL * scale, PRED_TOL, task)
+        ok = [bool(((s.species >= 0) & (s.species <= 100)).all()) for s in strucs]
+        syn = SynScore(tmp, device=DEV)
+        if not syn.trained:
+            raise AssertionError("SynScore did not load the in-repo ensemble")
+        scores = np.full(len(strucs), np.nan)
+        scores[ok] = syn.calc(([s for s, m in zip(strucs, ok) if m], None), "syn")
+        syn_err = check_values(scores, record["syn_score"], SYN_TOL, 0.0, "syn_score")
+
+        corpus = read_extxyz(str(CORPUS), limit=max(PRED_BATCHES) + TRAIN_BATCH * TRAIN_STEPS)
+        timing = {}
+        for n in PRED_BATCHES:
+            head = corpus[:n]
+            gnn = models["mp_total_mag_per_atom"]
+            batch = gnn.batch(head)
+
+            def forward():
+                with torch.no_grad():
+                    gnn.forward(batch)
+
+            timing[n] = dict(
+                call_ms={name: median_ms(lambda m=m: m.predict(head), PRED_REPEATS)
+                         for name, m in models.items()},
+                forward_ms=median_ms(forward, PRED_REPEATS),
+                syn_score_ms=median_ms(lambda: syn.calc((head, None), "t"), PRED_REPEATS),
+            )
+
+        # the trainer, card against CPU on the first step, then 20 steps
+        train = corpus[max(PRED_BATCHES):]
+        labels = label_structures(train, TRAIN_MODEL)
+        y = (labels - np.nanmean(labels)) / np.nanstd(labels)
+        first = {}
+        for dev in ("cpu", DEV):
+            gnn = PropertyGNN(TRAIN_MODEL, model_dir="", seed=0, device=dev)
+            trainer = PredictorTrainer(gnn, lr=1e-3)
+            batches = labeled_batches(train, y, TRAIN_BATCH, gnn.max_atoms,
+                                      np.random.default_rng(0))
+            opt = trainer.optimizer()
+            b, yy = next(batches)
+            first[dev] = float(trainer.step(opt, b, yy))
+        losses = [first[DEV]]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(TRAIN_STEPS - 1):
+            b, yy = next(batches)
+            losses.append(float(trainer.step(opt, b, yy)))
+        step_ms = 1e3 * (time.perf_counter() - t1) / (TRAIN_STEPS - 1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if abs(first[DEV] - first["cpu"]) > 1e-4 * abs(first["cpu"]):
+        raise AssertionError(f"first trainer loss card {first[DEV]} vs cpu {first['cpu']}")
+    if not all(map(math.isfinite, losses)) or not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"trainer losses {losses}")
+    rec = dict(
+        phase="predictor", structures=len(strucs), corpus=record["n_corpus"],
+        loaded={name: m.loaded for name, m in models.items()}, load_seconds=load_seconds,
+        max_err_over_y_std=raw_err, task_max_abs_err=task_err, syn_score_max_abs_err=syn_err,
+        tol=dict(raw=PRED_TOL, syn_score=SYN_TOL), timing=timing,
+        trainer=dict(model=TRAIN_MODEL, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                     first_loss=first[DEV], cpu_first_loss=first["cpu"], losses=losses,
+                     ms_per_step=step_ms),
+        seconds=time.perf_counter() - t0,
+    )
+    emit(rec)
+    return rec
+
+
+def phase_rl_mag() -> dict:
+    """Two rl_mag_rich_dense iterations as the entry point builds them, on
+    the card, in a temporary directory: 12,000 edge kernels each, a finite
+    magnetic-density mean scored on the card, ``time_score_s`` per
+    iteration, and the archived JAX run's ``metrics.csv`` columns."""
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_rl_mag_")
+    root = logging.getLogger()
+    level, log = root.level, LogRecords()
+    root.setLevel(logging.INFO)
+    root.addHandler(log)
+    try:
+        pipe = mat_invent.build(mat_invent.resolve("rl_mag_rich_dense", 2), out)
+        calc = pipe.reward.prop_cfg[0]["calculator"]
+        if not isinstance(calc, PropertyPredictor) or calc.device.type != torch.device(DEV).type:
+            raise AssertionError(f"the reward's calculator is {calc!r}, not a predictor on the card")
+        c = pipe.agent.config
+        expected = c.num_layers * (1 + c.n_corrector) * c.timesteps
+        iters = []
+        for step in range(pipe.rl_epoch):
+            pipe.step = step
+            it = _iteration(pipe, log, pipe.rl_step)
+            it["magnetic_density_mean"] = pipe.logger.rows[-1].get("magnetic_density mean")
+            iters.append(it)
+        for it in iters:
+            if it["kernel_launches"] != expected:
+                raise AssertionError(f"iteration {it['step']}: {it['kernel_launches']} "
+                                     f"launches, not {expected}")
+            if not math.isfinite(float(it["magnetic_density_mean"])):
+                raise AssertionError(f"iteration {it['step']}: magnetic density mean "
+                                     f"{it['magnetic_density_mean']}")
+            if it["time_score_s"] is None:
+                raise AssertionError(f"iteration {it['step']}: no time_score_s")
+        if not calc._models["mp_total_mag_per_atom"].loaded:
+            raise AssertionError("the magnetic-moment predictor did not load")
+        with open(Path(out) / "metrics.csv") as fh, open(RL_MAG_METRICS) as ref:
+            header, ref_header = fh.readline().strip(), ref.readline().strip()
+        if header != ref_header:
+            raise AssertionError(f"metrics.csv columns {header} != {ref_header}")
+    finally:
+        root.removeHandler(log)
+        root.setLevel(level)
+        shutil.rmtree(out, ignore_errors=True)
+    rec = dict(phase="rl_mag", recipe="rl_mag_rich_dense", iterations=iters,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
 def instances(build_rec: dict, library: str, prefix: str) -> list[dict]:
     """The build's instances of ``library`` whose name starts with
     ``prefix``: registers, spills and shared memory of each."""
@@ -930,6 +1138,8 @@ def main() -> int:
     phase_opt_filter(strucs)
     rl = phase_rl(start_sd)
     rl_async = phase_rl_async()
+    phase_predictor()
+    rl_mag = phase_rl_mag()
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     b = kern["buckets"]
     common = dict(route="cuda", impl="cuda", checked=True)
@@ -942,6 +1152,7 @@ def main() -> int:
         launches_validity=valid["kernel_launches"],
         launches_rl=[it["kernel_launches"] for it in rl["iterations"]],
         launches_rl_async=[it["kernel_launches"] for it in rl_async["iterations"]],
+        launches_rl_mag=[it["kernel_launches"] for it in rl_mag["iterations"]],
         max_abs_err=kern["max_abs_err_f32"],
         max_abs_err_bf16=kern["max_abs_err_bf16"],
         # one layer-eval of the batch: the sum over the bucket shapes, f32

@@ -191,13 +191,14 @@ def save_extxyz(structures: Sequence[Structure], path: str) -> str:
     return path
 
 
-def read_extxyz(path: str) -> list[Structure]:
-    """Parse an extxyz file written by :func:`save_extxyz`."""
+def read_extxyz(path: str, limit: int | None = None) -> list[Structure]:
+    """Parse an extxyz file written by :func:`save_extxyz` (its first
+    ``limit`` structures, when given)."""
     structures = []
     with open(path) as fh:
         lines = fh.read().splitlines()
     i = 0
-    while i < len(lines):
+    while i < len(lines) and (limit is None or len(structures) < limit):
         if not lines[i].strip():
             i += 1
             continue

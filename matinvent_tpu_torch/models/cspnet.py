@@ -1,4 +1,4 @@
-"""CSPNet building blocks (``matinvent_tpu/models/cspnet.py``).
+"""CSPNet and its layer (``matinvent_tpu/models/cspnet.py``).
 
 The edges are the dense fully connected graph of each crystal, a masked
 ``[B, A, A, ...]`` tensor. The first edge-MLP layer is applied decomposed:
@@ -6,6 +6,14 @@ its input ``concat(h_i, h_j, lattice_ip, dist_emb)`` splits the weight into
 two ``[B, A, H]`` node terms, one ``[B, H]`` lattice term and the one true
 edge product over the distance embedding. The parameter stays one
 ``edge_mlp_0`` linear layer, so the checkpoint's keys map 1:1.
+
+``CSPNet`` is the JAX package's joint lattice/coord/type network with its
+options: a relaxed one-hot (``smooth``) or an embedding of the atomic
+number, layer norms, and a scalar head (``pred_scalar``, the property
+predictors). Its layers always take the lattice inner products, and the
+lattice head is always multiplied by the lattice: no caller sets the JAX
+module's ``ip=False``. It never runs the fused edge
+kernel: the JAX ``CSPNet`` builds its layers without ``fused_edge``.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain
+from matinvent_tpu_torch.ops.segment import masked_mean
 
 # flax.linen.LayerNorm's epsilon, which the checkpoints were trained with
 LN_EPS = 1e-6
@@ -144,3 +153,98 @@ class CSPLayer(nn.Module):
         out = F.silu(linear(self.node_mlp_0, out, dtype))
         out = F.silu(linear(self.node_mlp_1, out, dtype))
         return node_input + out.to(node_input.dtype)
+
+
+class CSPNet(nn.Module):
+    """Joint lattice/coord/type network over padded crystal batches, with
+    the JAX package's parameter names (``node_embedding``,
+    ``atom_latent_emb``, ``csp_layer_<i>``, ``final_layer_norm``,
+    ``coord_out``, then ``scalar_out`` or ``lattice_out`` and
+    ``type_out``). ``coord_out`` exists under the scalar head too, unused,
+    as in the flax module, so checkpoints map 1:1."""
+
+    def __init__(
+        self,
+        hidden_dim: int = 128,
+        latent_dim: int = 256,
+        num_layers: int = 4,
+        max_atoms: int = 100,  # type vocabulary size
+        num_freqs: int = 10,
+        ln: bool = False,
+        smooth: bool = True,
+        pred_type: bool = True,
+        pred_scalar: bool = False,
+        edge_style: str = "fc",
+    ):
+        super().__init__()
+        if edge_style != "fc":
+            # the knn edge style (ops/neighbors.py) is not ported yet
+            raise NotImplementedError(f"edge_style {edge_style!r}: only 'fc' is ported")
+        H = hidden_dim
+        self.hidden_dim, self.latent_dim, self.num_layers = H, latent_dim, num_layers
+        self.max_atoms, self.num_freqs = max_atoms, num_freqs
+        self.smooth = smooth
+        self.pred_type, self.pred_scalar = pred_type, pred_scalar
+        self.node_embedding = nn.Linear(max_atoms, H) if smooth else nn.Embedding(max_atoms, H)
+        self.atom_latent_emb = nn.Linear(H + latent_dim, H)
+        for i in range(num_layers):
+            setattr(self, f"csp_layer_{i}", CSPLayer(H, num_freqs, ln=ln))
+        self.final_layer_norm = nn.LayerNorm(H, eps=LN_EPS) if ln else None
+        self.coord_out = nn.Linear(H, 3, bias=False)
+        if pred_scalar:
+            self.scalar_out = nn.Linear(H, 1)
+        else:
+            self.lattice_out = nn.Linear(H, 9, bias=False)
+            if pred_type:
+                self.type_out = nn.Linear(H, max_atoms)
+
+    def forward(
+        self,
+        t_emb: torch.Tensor,  # [B, latent_dim]
+        atom_feats: torch.Tensor,  # [B, A, K] probs (smooth) or [B, A] int types
+        frac_coords: torch.Tensor,  # [B, A, 3]
+        lattice: torch.Tensor,  # [B, 3, 3]
+        num_atoms: torch.Tensor,  # [B]
+        mask: torch.Tensor,  # [B, A] bool
+        *,
+        dtype: torch.dtype = torch.float32,
+    ):
+        """``[B, 1]`` under the scalar head, else ``(lattice_out [B,3,3],
+        coord_out [B,A,3])`` and, with ``pred_type``, ``type_out [B,A,K]``."""
+        if self.smooth:
+            node = linear(self.node_embedding, atom_feats, dtype)
+        else:
+            # types - 1, a padded 0 wrapping to the last row as jnp.take does
+            idx = (atom_feats.long() - 1) % self.max_atoms
+            node = self.node_embedding.weight.to(dtype)[idx]
+        B, A = node.shape[:2]
+        t_per_atom = t_emb[:, None, :].expand(B, A, t_emb.shape[-1])
+        node = linear(self.atom_latent_emb, torch.cat([node, t_per_atom.to(node.dtype)], -1), dtype)
+
+        frac_diff = (frac_coords[:, None, :, :] - frac_coords[:, :, None, :]) % 1.0
+        # hoisted once per eval and shared across layers
+        dist_emb = sinusoids_embedding(frac_diff.to(torch.float32), self.num_freqs).to(dtype)
+        edge_mask = mask[:, :, None] & mask[:, None, :]
+        denom = num_atoms.to(torch.float32)[:, None].expand(B, A)
+        # the layers' lattice term, once per eval
+        lattice_ips = matmul3(lattice, lattice.transpose(-1, -2))
+        for i in range(self.num_layers):
+            node = getattr(self, f"csp_layer_{i}")(
+                node, frac_diff, lattice_ips, edge_mask, denom, dist_emb=dist_emb, dtype=dtype,
+            )
+        if self.final_layer_norm is not None:
+            node = layer_norm(self.final_layer_norm, node, dtype)
+
+        graph_features = masked_mean(node, mask[..., None], axis=1)  # [B, H]
+        if self.pred_scalar:
+            # flax Dense without a dtype: the f32 parameters promote the input
+            return F.linear(graph_features.to(torch.float32), self.scalar_out.weight,
+                            self.scalar_out.bias)
+        coord_out = linear(self.coord_out, node, dtype)
+        lattice_out = linear(self.lattice_out, graph_features, dtype)
+        lattice_out = lattice_out.reshape(-1, 3, 3).to(torch.float32)
+        lattice_out = matmul3(lattice_out, lattice.to(torch.float32))
+        if self.pred_type:
+            type_out = linear(self.type_out, node, dtype)
+            return lattice_out, coord_out.to(torch.float32), type_out.to(torch.float32)
+        return lattice_out, coord_out.to(torch.float32)

@@ -110,15 +110,18 @@ def _flax_path(name: str, module: nn.Module) -> tuple[tuple[str, ...], bool]:
 
 
 def params_to_jax(
-    state_dict: Mapping[str, Any], model: MatterGenDiffusion, prefix: str = "decoder."
+    state_dict: Mapping[str, Any], model: nn.Module, prefix: str = "decoder."
 ) -> dict[str, Any]:
     """The reverse of ``params_from_jax``: a state dict of ``model`` -> the
-    JAX package's ``{'params': ...}`` tree of float32 numpy arrays."""
+    JAX package's ``{'params': ...}`` tree of float32 numpy arrays. The
+    flax tree is that of ``model``'s submodule at ``prefix`` (the score net
+    of a ``MatterGenDiffusion``; ``model`` itself for ``prefix=""``)."""
+    net = model.get_submodule(prefix.rstrip(".")) if prefix else model
     tree: dict[str, Any] = {}
     for key, value in state_dict.items():
         if not key.startswith(prefix):
             raise KeyError(f"{key} is not under {prefix!r}")
-        path, transpose = _flax_path(key[len(prefix):], model.decoder)
+        path, transpose = _flax_path(key[len(prefix):], net)
         arr = np.asarray(value.detach().cpu() if torch.is_tensor(value) else value, np.float32)
         node = tree
         for p in path[:-1]:

@@ -2,10 +2,10 @@
 
 ``invalid_filter`` (structural, charge-balance and cell-size checks),
 ``OptFilter`` (novelty, uniqueness and stability masks, AND-ed over the
-chosen metrics) and ``OptEval`` (the metrics only). The ``synthesizable``
-metric (the SynScore ensemble) and MLIP relaxation (``relaxer``) are not
-ported and raise ``NotImplementedError``; ``relax=True`` without a relaxer
-relaxes nothing, as in the JAX package.
+chosen metrics, the ``synthesizable`` screen of the SynScore ensemble
+among them) and ``OptEval`` (the metrics only). MLIP relaxation
+(``relaxer``) is not ported and raises ``NotImplementedError``;
+``relax=True`` without a relaxer relaxes nothing, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from matinvent_tpu_torch.chem.matcher import (
 )
 from matinvent_tpu_torch.chem.structure import Structure, read_extxyz
 from matinvent_tpu_torch.chem.validity import cell_size_ok, smact_valid, structure_validity
+from matinvent_tpu_torch.rewards.calculators.syn_score import SynScore
 
 #: structure_matcher values: "ordered" and "disordered" are the exact tiers
 #: (pymatgen semantics), "fast" the fingerprint approximation
@@ -106,12 +107,16 @@ class OptFilter:
 
     Args:
         metrics: subset of ``METRIC_LIST`` to AND together.
-        relax, syn_threshold: accepted as the JAX package takes them; with
-            no ``relaxer`` and no synthesizability screen they do nothing.
+        relax: accepted as the JAX package takes it; with no ``relaxer`` it
+            does nothing.
         reference: ``ReferenceDataset`` for novelty and stability.
         stability_fn: ``(structures, energies, reference) -> mask``; by
             default energy above the reference hull <= ``ehull_threshold``.
         structure_matcher: a key of ``MATCHER_TIERS``.
+        syn_calculator, syn_threshold: the synthesizability screen keeps
+            scores >= ``syn_threshold`` (NaN counts as 0); by default a
+            ``SynScore`` on ``device``, skipped with a warning when its
+            ensemble is untrained.
     """
 
     def __init__(
@@ -126,13 +131,10 @@ class OptFilter:
         ehull_threshold: float = 0.1,
         syn_calculator=None,
         syn_threshold: float = 0.5,
+        device=None,
     ) -> None:
         if not all(m in METRIC_LIST for m in metrics):
             raise ValueError(f"metrics must be in {METRIC_LIST}, got {metrics}")
-        if "synthesizable" in metrics or syn_calculator is not None:
-            raise NotImplementedError(
-                "the 'synthesizable' metric needs the SynScore ensemble, which is not ported"
-            )
         if relaxer is not None:
             raise NotImplementedError("MLIP relaxation (relaxer) is not ported")
         self.metrics = metrics
@@ -141,6 +143,18 @@ class OptFilter:
         self.matcher = MATCHER_TIERS[structure_matcher]()
         self.num_workers = num_workers
         self.ehull_threshold = ehull_threshold
+        if "synthesizable" in metrics and syn_calculator is None:
+            syn_calculator = SynScore(root_dir="rewards/syn_filter", device=device)
+        if "synthesizable" in metrics and not getattr(syn_calculator, "trained", True):
+            # as for stability below: never gate samples on random-init scores
+            logging.warning(
+                "'synthesizable' metric requested but the SynScore ensemble "
+                "has no trained weights (random init); skipping the "
+                "synthesizability screen"
+            )
+            syn_calculator = None
+        self.syn_calculator = syn_calculator
+        self.syn_threshold = syn_threshold
 
     def pre_filter_elements(
         self, data_list: list, structures: List[Structure], energies: List[float] | None = None
@@ -189,6 +203,11 @@ class OptFilter:
                 "'stable' metric requested but no energies/reference hull "
                 "available; skipping stability screen"
             )
+        if self.syn_calculator is not None:
+            scores = np.asarray(
+                self.syn_calculator.calc((structures, None), "opt_filter"), dtype=float
+            )
+            masks["synthesizable"] = np.nan_to_num(scores, nan=0.0) >= self.syn_threshold
         metric_values = {f"frac_{k}": float(v.mean()) for k, v in masks.items()}
         if "stable" in masks:
             sun = masks["stable"] & masks["unique"] & masks["novel"]
@@ -230,10 +249,12 @@ class OptEval(OptFilter):
         return metrics, structures
 
 
-def build_filter(cfg: dict | None) -> OptFilter | None:
+def build_filter(cfg: dict | None, device=None, syn_root_dir: str | None = None) -> OptFilter | None:
     """An ``OptFilter`` from the port's plain-dict config: its keyword
     arguments, with ``reference`` given as ``ReferenceDataset.from_files``
-    paths (``structures_path``, ``energies_path``); ``None`` for no filter."""
+    paths (``structures_path``, ``energies_path``); ``None`` for no filter.
+    ``device`` and ``syn_root_dir`` (where its scores are written) are the
+    default synthesizability screen's."""
     if not cfg:
         return None
     if not isinstance(cfg, dict):
@@ -242,4 +263,8 @@ def build_filter(cfg: dict | None) -> OptFilter | None:
     ref = kwargs.pop("reference", None)
     if ref is not None:
         kwargs["reference"] = ReferenceDataset.from_files(**ref)
+    kwargs.setdefault("device", device)
+    if ("synthesizable" in kwargs.get("metrics", ()) and syn_root_dir is not None
+            and kwargs.get("syn_calculator") is None):
+        kwargs["syn_calculator"] = SynScore(root_dir=syn_root_dir, device=kwargs["device"])
     return OptFilter(**kwargs)

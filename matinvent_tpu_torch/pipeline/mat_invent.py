@@ -5,16 +5,18 @@ Per RL iteration: sample -> invalid filter -> ``OptFilter`` (optional) ->
 cap at ``max_num`` -> save extxyz -> reward -> long-term memory and its
 metrics -> diversity filter -> top-k -> experience replay -> reward-weighted
 fine-tune of the agent against the frozen prior -> run state and periodic
-checkpoint. Sampling and the fine-tune run on the model's device; everything
-else on the host.
+checkpoint. Sampling, the fine-tune and the device-side reward models (the
+property predictors, SynScore) run on the model's device; everything else
+on the host.
 
 Options, as the JAX package has them: ``resume`` continues from the run
 state under ``<save_dir>/state`` (saved every ``state_save_freq`` steps and
 on the last), ``profile_dir`` writes a ``torch.profiler`` Chrome trace of
 the first ``profile_steps`` iterations, and ``async_sampling`` samples
 iteration t+1 with the pre-fine-tune-t weights while the host filters and
-scores iteration t. DDPO and MLIP relaxation (``sample_cfg.mlip_opt``)
-raise ``NotImplementedError``.
+scores iteration t. DDPO, MLIP relaxation (``sample_cfg.mlip_opt``) and
+the calculators that are not ported (ALIGNN, DFT, MLIP) raise
+``NotImplementedError``.
 
     python -m matinvent_tpu_torch.pipeline.mat_invent --recipe rl_hhi_rich5 \\
         --rl-epoch 2 --out runs/hhi [--reward NAME] [--device cpu] \\
@@ -50,7 +52,7 @@ from matinvent_tpu_torch.pipeline.filters import build_filter, invalid_filter
 from matinvent_tpu_torch.pipeline.logger import CSVLogger, Logger, setup_logging
 from matinvent_tpu_torch.pipeline.save import save_structures
 from matinvent_tpu_torch.recipes import RECIPES, REPO_PATHS, REWARDS
-from matinvent_tpu_torch.rewards.calculators.empirical import Empirical
+from matinvent_tpu_torch.rewards.calculators import Empirical, PropertyPredictor, SynScore
 from matinvent_tpu_torch.rewards.reward import Reward
 from matinvent_tpu_torch.utils.checkpoint import (
     load_run_state,
@@ -59,6 +61,13 @@ from matinvent_tpu_torch.utils.checkpoint import (
 )
 
 ROOT = Path(__file__).resolve().parents[2]
+# a calculator config's ``class`` (the last component of the JAX config's
+# ``_target_``; Empirical when absent) -> (class, runs on the device?)
+CALCULATORS = {
+    "Empirical": (Empirical, False),
+    "PropertyPredictor": (PropertyPredictor, True),
+    "SynScore": (SynScore, True),
+}
 
 
 class MatInvent(ReinL):
@@ -99,7 +108,10 @@ class MatInvent(ReinL):
         )
         if self.sample_cfg.get("mlip_opt"):
             raise NotImplementedError("sample_cfg 'mlip_opt' (MLIP relaxation) is not ported")
-        self.filter = build_filter(self.sample_cfg.get("filter"))
+        self.filter = build_filter(
+            self.sample_cfg.get("filter"), device=model_suite.device,
+            syn_root_dir=os.path.join(save_dir, "rewards", "syn_filter"),
+        )
         if not 0.0 < topk_ratio <= 1.0:
             raise ValueError(f"topk_ratio must be in (0, 1], got {topk_ratio}")
         self.topk_ratio = topk_ratio
@@ -360,6 +372,20 @@ def _parse_value(text: str):
         return text
 
 
+def build_calculator(cfg: dict, out_dir: Path, device=None):
+    """The calculator of one ``prop_cfg`` entry, its ``root_dir`` under
+    ``out_dir``; those that run on the device get ``device``."""
+    kwargs = dict(cfg)
+    name = kwargs.pop("class", "Empirical")
+    if name not in CALCULATORS:
+        raise NotImplementedError(f"the calculator class {name!r} is not ported")
+    cls, on_device = CALCULATORS[name]
+    kwargs["root_dir"] = str(out_dir / kwargs["root_dir"])
+    if on_device:
+        kwargs["device"] = device
+    return cls(**kwargs)
+
+
 def build(cfg: dict, out: str, device: str | None = None) -> MatInvent:
     """The pipeline of a resolved recipe, writing under ``out``."""
     out_dir = Path(out)
@@ -367,8 +393,7 @@ def build(cfg: dict, out: str, device: str | None = None) -> MatInvent:
     suite = MatterGenSuite(**model_cfg, device=device)
     r = cfg["reward"]
     props = [
-        {**p, "calculator": Empirical(**{**p["calculator"],
-                                         "root_dir": str(out_dir / p["calculator"]["root_dir"])})}
+        {**p, "calculator": build_calculator(p["calculator"], out_dir, suite.device)}
         for p in r["prop_cfg"]
     ]
     reward = Reward(

@@ -8,9 +8,17 @@ the diversity filter, replay, and the reward-weighted fine-tune. Paths of
 the repository are relative to its root; the other paths are relative to
 the run's output directory.
 
-``REWARDS`` holds the reward sections of ``configs/reward/{hhi,price,
-abundance,log_abundance,mcia}.yaml`` (the entry point's ``--reward NAME``,
-Hydra's ``reward=NAME``), and ``BASE_FILTER`` the sample filter of
+``rl_mag_rich_dense`` holds the values of the archived JAX run
+``experiments/results/rl_mag_rich_dense/hparams.yaml``: the same loop from
+the h256/L6 checkpoint ``pretrained_geneval_r4`` with the ``corpus_r4``
+histogram, rewarded by the predicted magnetic density (``maxv`` 0.04).
+
+``REWARDS`` holds the reward sections of ``configs/reward/*.yaml`` whose
+calculators the port runs (the entry point's ``--reward NAME``, Hydra's
+``reward=NAME``): the empirical ones, the GNN property predictors and
+SynScore. A calculator's class is the last component of the YAML's
+``_target_``, under the calculator's ``class`` key; without that key it is
+``Empirical``. ``BASE_FILTER`` is the sample filter of
 ``configs/base.yaml`` (``OptFilter`` arguments), which the recipe variant
 ``rl_hhi_rich5_opt_filter`` sets, as ``--set
 pipeline.sample_cfg.filter=<json>`` can.
@@ -23,28 +31,59 @@ _SAMPLE = {"num_batches": 1, "max_num": 16, "filter": None}
 _FINETUNE = {"batch_size": 16, "accum_steps": 25, "epochs": 3, "sigma": 0.1}
 
 
-def _reward(name: str, target: str, minv, maxv, **calculator) -> dict:
-    return {
-        "root_dir": "rewards",
-        "prop_cfg": [
-            {
-                "name": name,
-                "calculator": {"root_dir": f"rewards/{name}", "task": name, **calculator},
-                "target": target,
-                "minv": minv,
-                "maxv": maxv,
-            }
-        ],
-        "reward_threshold": 0.8,
-    }
+def _prop(name: str, cls: str, target, minv, maxv, root: str | None = None,
+          weight: float | None = None, **calculator) -> dict:
+    """One ``prop_cfg`` entry: property and task ``name``, computed by a
+    calculator of class ``cls`` writing under ``rewards/<root or name>``."""
+    calc = {"class": cls} if cls != "Empirical" else {}
+    calc.update(root_dir=f"rewards/{root or name}", task=name, **calculator)
+    out = {"name": name, "calculator": calc, "target": target, "minv": minv, "maxv": maxv}
+    if weight is not None:
+        out["weight"] = weight
+    return out
 
+
+def _section(*props: dict, threshold: float = 0.8, reduce: str | None = None) -> dict:
+    out = {"root_dir": "rewards", "prop_cfg": list(props), "reward_threshold": threshold}
+    if reduce is not None:
+        out["reduce"] = reduce
+    return out
+
+
+_EMP, _PP = "Empirical", "PropertyPredictor"
 
 REWARDS = {
-    "hhi": _reward("hhi", "descending", 750, 3250),
-    "price": _reward("price", "descending", 0.0, 100.0),
-    "abundance": _reward("abundance", "ascending", 0.0, 100000.0),
-    "log_abundance": _reward("log_abundance", "ascending", -3.0, 5.0),
-    "mcia": _reward("mcia", "descending", 20.0, 400.0, substrate="Si"),
+    "hhi": _section(_prop("hhi", _EMP, "descending", 750, 3250)),
+    "price": _section(_prop("price", _EMP, "descending", 0.0, 100.0)),
+    "abundance": _section(_prop("abundance", _EMP, "ascending", 0.0, 100000.0)),
+    "log_abundance": _section(_prop("log_abundance", _EMP, "ascending", -3.0, 5.0)),
+    "mcia": _section(_prop("mcia", _EMP, "descending", 20.0, 400.0, substrate="Si")),
+    "band_gap": _section(_prop("band_gap", _PP, 3.0, 0.0, 2.0, root="bandgap"), threshold=0.875),
+    "bulk_modulus": _section(_prop("bulk_modulus", _PP, 300.0, 0.0, 250.0)),
+    "dielectric": _section(
+        _prop("total_dielectric_constant", _PP, "ascending", 35.0, 120.0), threshold=0.875),
+    "figure_of_merit": _section(_prop("figure_of_merit", _PP, "ascending", 10.0, 250.0)),
+    "fom_gap_dielectric": _section(
+        _prop("figure_of_merit", _PP, "ascending", 10.0, 250.0, weight=0.8),
+        _prop("band_gap", _PP, "ascending", 0.5, 3.5, root="bandgap", weight=0.1),
+        _prop("total_dielectric_constant", _PP, "ascending", 25.0, 50.0, weight=0.1),
+        reduce="weight"),
+    "formation_energy": _section(
+        _prop("formation_energy", _PP, "descending", -3.5, -1.0, root="form_e"), threshold=0.6),
+    "gap_bulk": _section(
+        _prop("band_gap", _PP, 3.0, 0.0, 2.0, root="bandgap", weight=0.5),
+        _prop("bulk_modulus", _PP, 300.0, 0.0, 250.0, weight=0.5),
+        reduce="weight"),
+    "mag_den_hhi": _section(
+        _prop("magnetic_density", _PP, "ascending", 0.0, 0.25),
+        _prop("hhi", _EMP, "descending", 750, 3250),
+        reduce="min"),
+    "magnetic_density": _section(_prop("magnetic_density", _PP, "ascending", 0.0, 0.25)),
+    "pugh_ratio": _section(_prop("pugh_ratio", _PP, "ascending", 1.5, 10.0)),
+    "shear_modulus": _section(_prop("shear_modulus", _PP, 200.0, 0.0, 160.0), threshold=0.9),
+    "syn_score": _section(_prop("syn_score", "SynScore", "ascending", 0.5, 1.0)),
+    "vickers_hardness": _section(_prop("vickers_hardness", _PP, "ascending", 5.0, 40.0)),
+    "young_modulus": _section(_prop("young_modulus", _PP, "ascending", 80.0, 480.0)),
 }
 
 BASE_FILTER = {
@@ -103,4 +142,15 @@ REPO_PATHS = (
 )
 
 RECIPES["rl_hhi_rich5_opt_filter"] = copy.deepcopy(RECIPES["rl_hhi_rich5"])
+
+_MAG = copy.deepcopy(RECIPES["rl_hhi_rich5"])
+_MAG.update(expname="rl_mag_rich_dense", rl_epoch=120)
+_MAG["pipeline"].update(rl_epoch=120, save_freq=120)
+_MAG["model"]["sample_cfg"].update(
+    num_atoms_distribution="corpus_r4",
+    num_atoms_distribution_file="experiments/data/corpus_r4_num_atoms.json",
+)
+_MAG["model"]["model_path"] = "experiments/results/pretrained_geneval_r4"
+_MAG["reward"] = _section(_prop("magnetic_density", _PP, "ascending", 0.0, 0.04))
+RECIPES["rl_mag_rich_dense"] = _MAG
 RECIPES["rl_hhi_rich5_opt_filter"]["pipeline"]["sample_cfg"]["filter"] = dict(BASE_FILTER)

@@ -1,3 +1,10 @@
-"""Host-side property calculators of the port. Only the empirical ones are
-ported; the predictor, synthesizability, DFT, MLIP and ALIGNN calculators of
-the JAX package are not, and nothing here imports them."""
+"""Property calculators of the port: the empirical ones (host), the GNN
+property predictors and the SynScore ensemble (on the calculator's device).
+The DFT, MLIP and ALIGNN calculators of the JAX package are not ported, and
+nothing here imports them."""
+from matinvent_tpu_torch.rewards.calculators.base import Calculator
+from matinvent_tpu_torch.rewards.calculators.empirical import Empirical
+from matinvent_tpu_torch.rewards.calculators.predictor import PropertyPredictor
+from matinvent_tpu_torch.rewards.calculators.syn_score import SynScore
+
+__all__ = ["Calculator", "Empirical", "PropertyPredictor", "SynScore"]

@@ -1,4 +1,4 @@
-"""A minimal msgpack encoder for flax's ``serialization.to_bytes`` format.
+"""A minimal msgpack encoder and decoder for flax's ``serialization.to_bytes`` format.
 
 ``params.msgpack`` of a checkpoint is a msgpack map of str keys (nested
 maps for submodules), whose array leaves are ``ExtType(1, packb((shape,
@@ -6,9 +6,12 @@ dtype name, C-order bytes)))`` and numpy scalars ``ExtType(3, ...)`` of the
 same payload, as flax writes them. This module writes that format with no
 flax and no msgpack package: ``packb`` encodes None, bool, int, float
 (64-bit), str, bytes, lists and tuples, dicts, numpy arrays and scalars,
-each in msgpack's shortest form. flax splits arrays of more than 2**30
-bytes into chunks; no checkpoint of the port comes near that, and such an
-array raises here.
+each in msgpack's shortest form. ``unpackb`` reads the format back, as
+flax's ``msgpack_restore`` does: maps, strings, binary data, arrays, ints,
+floats, bools and nil, with the array and numpy-scalar extension types
+turned into numpy values. flax splits arrays of more than 2**30 bytes into
+chunks; no checkpoint of the port comes near that, and such an array raises
+here, both ways.
 """
 from __future__ import annotations
 
@@ -117,3 +120,107 @@ def packb(obj: Any) -> bytes:
     out = bytearray()
     _pack(out, obj)
     return bytes(out)
+
+
+# flax's marker of an array split into chunks (serialization._CHUNK_KEY)
+CHUNKED_ARRAY_KEY = "__msgpack_chunked_array__"
+
+
+def _array_from_payload(data: bytes) -> np.ndarray:
+    shape, dtype, raw = unpackb(data)
+    try:
+        dt = np.dtype(dtype)
+    except TypeError as exc:
+        raise ValueError(f"unsupported array dtype {dtype!r}") from exc
+    return np.frombuffer(raw, dtype=dt).reshape(shape).copy()
+
+
+# type byte -> value, struct format of a number, size of a fixext, or
+# (length format, kind) of a sized object
+_CONSTANTS = {0xC0: None, 0xC2: False, 0xC3: True}
+_NUMBERS = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
+            0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+_FIXEXT = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
+_SIZED = {
+    0xC4: (">B", "bin"), 0xC5: (">H", "bin"), 0xC6: (">I", "bin"),
+    0xC7: (">B", "ext"), 0xC8: (">H", "ext"), 0xC9: (">I", "ext"),
+    0xD9: (">B", "str"), 0xDA: (">H", "str"), 0xDB: (">I", "str"),
+    0xDC: (">H", "array"), 0xDD: (">I", "array"),
+    0xDE: (">H", "map"), 0xDF: (">I", "map"),
+}
+
+
+class _Reader:
+    def __init__(self, data: bytes):
+        self.data = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise ValueError("truncated msgpack data")
+        out = self.data[self.pos : self.pos + n].tobytes()
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def ext(self, n: int):
+        code = self.unpack(">b")
+        data = self.take(n)
+        if code == EXT_NDARRAY:
+            return _array_from_payload(data)
+        if code == EXT_NPSCALAR:
+            return _array_from_payload(data)[()]
+        raise ValueError(f"unsupported msgpack extension type {code}")
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.read()
+            out[k] = self.read()
+        if CHUNKED_ARRAY_KEY in out:
+            raise ValueError("arrays split into chunks (over 2**30 bytes) are not supported")
+        return out
+
+    def read(self) -> Any:
+        b = self.unpack(">B")
+        if b <= 0x7F or b >= 0xE0:  # positive and negative fixint
+            return b if b <= 0x7F else b - 0x100
+        if b <= 0x8F:
+            return self.map(b & 0x0F)
+        if b <= 0x9F:
+            return [self.read() for _ in range(b & 0x0F)]
+        if b <= 0xBF:
+            return self.take(b & 0x1F).decode("utf-8")
+        if b in _CONSTANTS:
+            return _CONSTANTS[b]
+        if b in _NUMBERS:
+            return self.unpack(_NUMBERS[b])
+        if b in _FIXEXT:
+            return self.ext(_FIXEXT[b])
+        if b not in _SIZED:
+            raise ValueError(f"invalid msgpack type byte 0x{b:02x}")
+        fmt, kind = _SIZED[b]
+        n = self.unpack(fmt)
+        if kind == "bin":
+            return self.take(n)
+        if kind == "str":
+            return self.take(n).decode("utf-8")
+        if kind == "ext":
+            return self.ext(n)
+        if kind == "array":
+            return [self.read() for _ in range(n)]
+        return self.map(n)
+
+
+def unpackb(data: bytes) -> Any:
+    """The object of msgpack bytes: maps as dicts, arrays as lists, strings
+    as str, binary data as bytes; flax's array and numpy-scalar extension
+    types as numpy arrays and scalars (what ``flax.serialization.
+    msgpack_restore`` returns for the bytes of ``to_bytes``)."""
+    reader = _Reader(data)
+    out = reader.read()
+    if reader.pos != len(reader.data):
+        raise ValueError(f"{len(reader.data) - reader.pos} trailing bytes after the msgpack object")
+    return out

@@ -20,6 +20,11 @@ from matinvent_tpu_torch.models.mattergen.diffusion import (
     MGNoised,
 )
 from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain, fused_edge_chain_plain
+from matinvent_tpu_torch.rewards.calculators.predictor import (
+    DEFAULT_MODEL_DIR,
+    TASK_MODEL_DICT,
+    PropertyGNN,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -348,3 +353,76 @@ def test_resumed_matinvent_on_the_card_has_the_saved_weights(tmp_path):
     assert generator_state(resumed.generator) == generator_state(first.generator)
     resumed.run_rl()
     assert (tmp_path / "models/final/params.msgpack").is_file()
+
+
+def _random_structures(counts, seed):
+    """Crystals of the given atom counts: species 1..100, sheared cells."""
+    from matinvent_tpu_torch.chem.structure import Structure
+
+    rng = np.random.default_rng(seed)
+    return [Structure(np.eye(3) * rng.uniform(3.0, 8.0) + rng.normal(size=(3, 3)) * 0.4,
+                      rng.integers(1, 101, n), rng.uniform(size=(n, 3))) for n in counts]
+
+
+# odd atom counts, and the predictors' 32-atom cap
+PRED_COUNTS = [(1, 3, 7, 13, 31), (32, 32, 5), (17,)]
+
+
+@pytest.mark.parametrize("counts", PRED_COUNTS)
+def test_predictors_on_card_match_cpu(counts):
+    """Each in-repo predictor on the card against the same weights on the
+    CPU (TF32 off): within 1e-4 of its y_std."""
+    _need_card()
+    strucs = _random_structures(counts, seed=len(counts))
+    for name in sorted(m for m in TASK_MODEL_DICT.values() if m):
+        card = PropertyGNN(name, model_dir=DEFAULT_MODEL_DIR, device="cuda")
+        cpu = PropertyGNN(name, model_dir=DEFAULT_MODEL_DIR, device="cpu")
+        assert card.loaded and cpu.loaded
+        out, ref = card.predict(strucs), cpu.predict(strucs)
+        assert np.isfinite(out).all()
+        np.testing.assert_allclose(out, ref, atol=1e-4 * card.y_std, rtol=0, err_msg=name)
+
+
+def test_syn_score_on_card_matches_cpu(tmp_path):
+    _need_card()
+    from matinvent_tpu_torch.rewards.calculators.syn_score import SynScore
+
+    strucs = _random_structures([1, 2, 3, 5, 8, 13, 32] * 10, seed=3)
+    card = SynScore(str(tmp_path / "card"), device="cuda")
+    cpu = SynScore(str(tmp_path / "cpu"), device="cpu")
+    assert card.trained and cpu.trained
+    np.testing.assert_allclose(card.calc((strucs, None)), cpu.calc((strucs, None)), atol=1e-6,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("counts", PRED_COUNTS)
+def test_predictor_trainer_step_on_card_matches_cpu(counts):
+    """One clipped Adam step at full width (H=128, L=4) on the card against
+    the CPU: the loss within 1e-4 relative, every clipped gradient within
+    1e-4 of its scale; Adam's first step moves a weight by about lr times
+    the sign of its gradient, so the weights agree within 1e-6 wherever the
+    gradient is clear of 0 (above 1e-3 of its scale)."""
+    _need_card()
+    from matinvent_tpu_torch.models.batch import CrystalBatch
+    from matinvent_tpu_torch.parallel.train_predictor import PredictorTrainer
+
+    strucs = _random_structures(counts, seed=7)
+    batch = CrystalBatch.from_lists([s.species for s in strucs], [s.frac_coords for s in strucs],
+                                    [s.lattice for s in strucs], max_atoms=32)
+    y = torch.tensor(np.random.default_rng(1).normal(size=len(strucs)), dtype=torch.float32)
+    results = []
+    for dev in ("cpu", "cuda"):
+        gnn = PropertyGNN("mp_bandgap", model_dir="", seed=2, device=dev)
+        trainer = PredictorTrainer(gnn, lr=1e-3, grad_clip=0.5)
+        loss = trainer.step(trainer.optimizer(), batch, y)
+        results.append((float(loss),
+                        {k: p.grad.cpu() for k, p in gnn.net.named_parameters() if p.grad is not None},
+                        {k: v.cpu() for k, v in gnn.net.state_dict().items()}))
+    (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = results
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    assert g_card.keys() == g_cpu.keys()
+    for k, g in g_cpu.items():
+        scale = max(g.abs().max().item(), 1e-12)
+        assert (g_card[k] - g).abs().max().item() <= 1e-4 * scale, k
+        clear = g.abs() > 1e-3 * scale
+        assert (p_card[k] - p_cpu[k])[clear].abs().max().item() <= 1e-6, k

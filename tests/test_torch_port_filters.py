@@ -306,9 +306,16 @@ def test_opt_filter_and_opt_eval_equal_jax(match_set, corpus, case):
     assert 0 < len(pd_) < len(data) or case == "no_reference"
 
 
-def test_synthesizable_and_relaxer_raise():
-    with pytest.raises(NotImplementedError):
-        pfilters.OptFilter(metrics=["validity", "synthesizable"], relax=False)
+def test_synthesizable_and_relaxer_raise(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    # the synthesizable screen is ported (tests/test_torch_port_rewards.py):
+    # its SynScore runs on the CPU when asked, and like every device entry
+    # point raises without a card otherwise
+    screen = pfilters.OptFilter(metrics=["validity", "synthesizable"], relax=False, device="cpu")
+    assert screen.syn_calculator.trained
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            pfilters.OptFilter(metrics=["validity", "synthesizable"], relax=False)
     with pytest.raises(NotImplementedError):
         pfilters.OptFilter(metrics=["validity"], relaxer=lambda s: (s, None))
     with pytest.raises(ValueError):

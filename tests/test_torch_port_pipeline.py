@@ -376,12 +376,16 @@ def test_entry_point_runs_one_tiny_iteration_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("option", [
     "finetune_mode=\"ddpo\"", "sample_cfg.mlip_opt=true",
-    "sample_cfg.filter={\"metrics\": [\"validity\", \"synthesizable\"]}",
     "sample_cfg.filter={\"metrics\": [\"validity\"], \"relaxer\": \"mlip\"}",
+    # CSP mode, and a calculator class that is not ported (ALIGNN)
+    "model.sample_cfg.target_compositions_dict={\"Fe\": 2, \"O\": 3}",
+    "reward.prop_cfg=[{\"name\": \"band_gap\", \"calculator\": {\"class\": \"ALIGNN\", "
+    "\"root_dir\": \"rewards/band_gap\", \"task\": \"band_gap\"}, \"target\": 3.0, "
+    "\"minv\": 0.0, \"maxv\": 2.0}]",
 ])
 def test_options_not_ported_raise(tmp_path, option):
-    cfg = mat_invent.resolve("rl_hhi_rich5", 1, [a for a in TINY if a != "--set"]
-                             + [f"pipeline.{option}"])
+    key = option if option.startswith(("model.", "reward.")) else f"pipeline.{option}"
+    cfg = mat_invent.resolve("rl_hhi_rich5", 1, [a for a in TINY if a != "--set"] + [key])
     with pytest.raises(NotImplementedError):
         mat_invent.build(cfg, str(tmp_path), device="cpu")
 
