@@ -46,7 +46,20 @@ launch counts set to 0 just before and read just after:
   their time per call at batch 64 and 512, and 20 ``PredictorTrainer``
   steps at full width, the first against the CPU;
 * two RL iterations of the ``rl_mag_rich_dense`` recipe (phase
-  ``rl_mag``), rewarded by the magnetic-density predictor on the card.
+  ``rl_mag``), rewarded by the magnetic-density predictor on the card;
+* the DiffCSP family (phase ``diffcsp``): the in-repo checkpoint
+  ``experiments/results/pretrained`` loaded by ``DiffCSPSuite``, its f32
+  score net on the card against the CPU, 128 crystals sampled at T=1000
+  (``max_atoms`` 8, ``sample_clip`` 30) with their validity shares, and one
+  reward-weighted iteration of the ``diffcsp_hhi`` recipe;
+* DDPO (phases ``ddpo_diffcsp`` and ``ddpo_mattergen``): two iterations of
+  ``rl_hhi_ddpo`` and of ``rl_hhi_ddpo_mattergen_t1000``; in iteration 0
+  the replay of the recorded trajectory at the recording weights must give
+  a mean importance ratio of 1 within 1e-5 and no clipped ratio, and each
+  PPO epoch's ratio statistics are reported. These phases run the plain
+  net (DiffCSP's ``CSPNet`` has no fused edge branch, and DDPO records and
+  replays on the plain net), so they launch none of the kernels: the count
+  is read and must stay 0.
 
 Kernel times are device times (CUDA graph replay, ``experiments/timing.py``).
 Each phase prints one JSON line (the harnesses print their own records
@@ -96,7 +109,10 @@ from matinvent_tpu_torch.experiments.timing import (
 )
 from matinvent_tpu_torch.models.cspnet import sinusoids_embedding
 from matinvent_tpu_torch.models.mattergen.diffusion import MGNoised, NoiseDraws
+from matinvent_tpu_torch.models.diffcsp import NoisedInput, sinusoidal_time_embedding
 from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
+from matinvent_tpu_torch.models.sample import DiffCSPSampler, batch_to_structures
+from matinvent_tpu_torch.models.suite.diffcsp import DiffCSPSuite
 from matinvent_tpu_torch.models.suite.mattergen import load_model
 from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain, fused_edge_chain_plain
 from matinvent_tpu_torch.parallel.train import FinetuneStep
@@ -137,6 +153,13 @@ PRED_BATCHES, PRED_REPEATS = (64, 512), 7
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_MODEL = 20, 64, "mp_total_mag_per_atom"
 RL_MAG_METRICS = ROOT / "experiments/results/rl_mag_rich_dense/metrics.csv"
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+# the DiffCSP family: the in-repo checkpoint, sampled as the DDPO recipes
+# sample it (128 crystals of at most 8 atoms, sample_clip 30); its score
+# net card against CPU within 2e-4 of scale (the f32 score-net line)
+DIFFCSP_CKPT = ROOT / "experiments/results/pretrained"
+DIFFCSP_BATCH, DIFFCSP_MAX_ATOMS, DIFFCSP_CLIP, NET_TOL = 128, 8, 30.0, 2e-4
+# DDPO: the replay at the recording weights, mean ratio within 1e-5 of 1
+RATIO_TOL = 1e-5
 DEV = "cuda"
 BATCH, BUCKETS, MAX_ATOMS, SEED = 256, 4, 20, 0
 SOURCES = ("fused_edge", "edge_flat")  # csrc/<name>.cu
@@ -1103,6 +1126,193 @@ def phase_rl_mag() -> dict:
     return rec
 
 
+def _run_logged(fn):
+    """``fn(log)`` with the pipeline's INFO log captured."""
+    root = logging.getLogger()
+    level, log = root.level, LogRecords()
+    root.setLevel(logging.INFO)
+    root.addHandler(log)
+    try:
+        return fn(log)
+    finally:
+        root.removeHandler(log)
+        root.setLevel(level)
+
+
+def phase_diffcsp() -> dict:
+    """``experiments/results/pretrained`` through ``DiffCSPSuite``: the f32
+    score net on the card against the CPU on the same inputs; 128 crystals
+    at T=1000 (their seconds, validity shares and peak memory); one
+    iteration of the ``diffcsp_hhi`` recipe as the entry point builds it.
+    No edge kernel runs."""
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    suite = DiffCSPSuite(model_path=str(DIFFCSP_CKPT),
+                         config_overrides={"sample_clip": DIFFCSP_CLIP}, device=DEV)
+    model = suite.load_model()
+    load_seconds = time.perf_counter() - t1
+    cpu_model = DiffCSPSuite(model_path=str(DIFFCSP_CKPT), device="cpu").load_model()
+    c = model.config
+    rng = np.random.default_rng(0)
+    B, A, K = 64, DIFFCSP_MAX_ATOMS, c.max_atomic_num
+    na = torch.from_numpy(rng.integers(1, A + 1, B).astype(np.int64))
+    mask = torch.arange(A)[None, :] < na[:, None]
+    times = torch.from_numpy(rng.integers(1, c.timesteps + 1, B))
+    inputs = NoisedInput(
+        sinusoidal_time_embedding(times, c.time_dim),
+        torch.from_numpy(rng.normal(size=(B, A, K)).astype(np.float32)),
+        torch.from_numpy(rng.uniform(size=(B, A, 3)).astype(np.float32)),
+        torch.from_numpy((np.eye(3) * 5.0 + rng.normal(size=(B, 3, 3))).astype(np.float32)),
+    )
+    with torch.no_grad():
+        ref = cpu_model.apply_net(inputs, na, mask)
+        got = model.apply_net(NoisedInput(*(x.to(DEV) for x in inputs)), na.to(DEV), mask.to(DEV))
+    net_err = 0.0
+    for name, g, r in zip(("lattice", "coords", "types"), got, ref):
+        err = (g.cpu() - r).abs()
+        if r.dim() == 3 and r.shape[1] == A:
+            err = err * mask[..., None]
+        rel = err.max().item() / max(1.0, r.abs().max().item())
+        if not rel <= NET_TOL:
+            raise AssertionError(f"DiffCSP score net {name}: card vs cpu {rel} > {NET_TOL}")
+        net_err = max(net_err, rel)
+    del cpu_model
+
+    sampler = DiffCSPSampler(batch_size=DIFFCSP_BATCH, num_batches=1, max_atoms=A, seed=SEED)
+    fused_edge_chain.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    batch = sampler.launch(model)
+    torch.cuda.synchronize()
+    sample_seconds = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    if fused_edge_chain.launches != 0:
+        raise AssertionError("DiffCSP sampling launched the edge kernel")
+    for name in ("frac_coords", "lattice"):
+        if not torch.isfinite(getattr(batch, name)).all():
+            raise AssertionError(f"sampled {name} are not finite")
+    if tuple(batch.frac_coords.shape) != (DIFFCSP_BATCH, A, 3):
+        raise AssertionError(f"unexpected batch shape {tuple(batch.frac_coords.shape)}")
+    _, strucs = batch_to_structures(batch)
+    shares = measure_validity(strucs)
+    del model
+
+    def one_iteration(log):
+        out = tempfile.mkdtemp(prefix="chip_smoke_diffcsp_")
+        try:
+            pipe = mat_invent.build(mat_invent.resolve("diffcsp_hhi", 1), out)
+            if type(pipe.agent).__name__ != "DiffCSPDiffusion" or pipe.ddpo is not None:
+                raise AssertionError("diffcsp_hhi did not build a reward-weighted DiffCSP run")
+            prior_before = {k: v.clone() for k, v in pipe.prior.state_dict().items()}
+            it = _iteration(pipe, log, pipe.run_rl)
+            if it["kernel_launches"] != 0:
+                raise AssertionError("the DiffCSP iteration launched the edge kernel")
+            if any(not torch.equal(v, prior_before[k]) for k, v in pipe.prior.state_dict().items()):
+                raise AssertionError("the prior changed")
+            if not (Path(out) / "models/final/params.msgpack").is_file():
+                raise AssertionError("models/final/params.msgpack was not written")
+            return it
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+
+    it = _run_logged(one_iteration)
+    rec = dict(phase="diffcsp", checkpoint=str(DIFFCSP_CKPT.relative_to(ROOT)),
+               load_seconds=load_seconds, net_max_rel_err=net_err, net_tol=NET_TOL,
+               batch=DIFFCSP_BATCH, max_atoms=A, timesteps=c.timesteps,
+               sample_clip=DIFFCSP_CLIP, sample_seconds=sample_seconds,
+               structures_per_s=DIFFCSP_BATCH / sample_seconds, validity=shares,
+               sample_peak_memory_bytes=peak, iteration=it,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def phase_ddpo(name: str, recipe: str) -> dict:
+    """Two iterations of a DDPO recipe as the entry point builds them, in a
+    temporary directory. In iteration 0, before its update, the whole
+    recorded trajectory is replayed at the recording weights: the mean
+    importance ratio within 1e-5 of 1 and no ratio clipped. Every iteration
+    writes finite ``ddpo_*`` columns and launches no edge kernel; the agent
+    moves and the prior does not."""
+    t0 = time.perf_counter()
+
+    def run(log):
+        out = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        try:
+            pipe = mat_invent.build(mat_invent.resolve(recipe, 2), out)
+            if pipe.ddpo is None or not pipe.sampler.record_trajectories:
+                raise AssertionError(f"{recipe} did not build a DDPO run")
+            replays = []
+            ddpo_run = pipe.ddpo.run
+
+            def run_after_replay(agent, traj, num_atoms, mask, rewards, rows=None, **replay):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                st = pipe.ddpo.replay_stats(agent, traj, num_atoms, mask, rows=rows, **replay)
+                # the share of the recorded next cells held at the sample clip
+                cells = traj["next_lattices" if "next_lattices" in traj else "cell"]
+                clipped = (cells.abs() >= agent.config.sample_clip).float().mean().item()
+                replays.append(dict(st, seconds=time.perf_counter() - t1, rows=len(rows),
+                                    clipped_cell_share=clipped))
+                return ddpo_run(agent, traj, num_atoms, mask, rewards, rows=rows, **replay)
+
+            pipe.ddpo.run = run_after_replay
+            prior_before = {k: v.clone() for k, v in pipe.prior.state_dict().items()}
+            agent_before = {k: v.clone() for k, v in pipe.agent.state_dict().items()}
+            iters = []
+            for step in range(pipe.rl_epoch):
+                pipe.step = step
+                log.messages.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fused_edge_chain.launches = 0
+                pipe.rl_step()
+                torch.cuda.synchronize()
+                row = pipe.logger.rows[-1]
+                it = dict(
+                    step=int(row["step"]), kernel_launches=fused_edge_chain.launches,
+                    valid=int(log.numbers(r"Number of valid samples: (\d+)")[0]),
+                    reward_mean=row.get("reward mean"),
+                    ddpo_batch=int(log.numbers(r"DDPO batch: (\d+)")[0]),
+                    epoch_stats=list(pipe.ddpo.epoch_stats),
+                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                    **{k: row.get(k) for k in ("time_sample_s", "time_score_s", "time_finetune_s",
+                                               "ddpo_ratio_mean", "ddpo_ratio_max",
+                                               "ddpo_clip_frac")},
+                )
+                if it["kernel_launches"] != 0:
+                    raise AssertionError(f"{recipe} iteration {step} launched the edge kernel")
+                if not all(math.isfinite(float(it[k])) for k in
+                           ("ddpo_ratio_mean", "ddpo_ratio_max", "ddpo_clip_frac")):
+                    raise AssertionError(f"{recipe} iteration {step}: ddpo columns {it}")
+                iters.append(it)
+            first = replays[0]
+            if not (abs(first["ratio_mean"] - 1.0) <= RATIO_TOL and first["clip_frac"] == 0.0):
+                raise AssertionError(f"{recipe}: the replay at the recording weights gives {first}")
+            if any(not torch.equal(v, prior_before[k]) for k, v in pipe.prior.state_dict().items()):
+                raise AssertionError("the prior changed")
+            moved = any(not torch.equal(v, agent_before[k])
+                        for k, v in pipe.agent.state_dict().items())
+            # standardized advantages are all 0 when every reward is equal
+            if not moved and any(float(r.get("reward std") or 0) > 0 for r in pipe.logger.rows):
+                raise AssertionError("DDPO did not move the agent")
+            cfg = dict(lr=pipe.ddpo.lr, chunk=pipe.ddpo.chunk, epochs=pipe.ddpo.epochs,
+                       batch=pipe.sampler.batch_size, max_atoms=pipe.sampler.max_atoms,
+                       timesteps=pipe.agent.config.timesteps,
+                       family=type(pipe.agent).__name__)
+            return iters, replays, cfg
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+
+    iters, replays, cfg = _run_logged(run)
+    rec = dict(phase=name, recipe=recipe, **cfg, iterations=iters,
+               replay_at_recording_weights=replays, ratio_tol=RATIO_TOL,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
 def instances(build_rec: dict, library: str, prefix: str) -> list[dict]:
     """The build's instances of ``library`` whose name starts with
     ``prefix``: registers, spills and shared memory of each."""
@@ -1140,6 +1350,9 @@ def main() -> int:
     rl_async = phase_rl_async()
     phase_predictor()
     rl_mag = phase_rl_mag()
+    csp = phase_diffcsp()
+    ddpo = [phase_ddpo("ddpo_diffcsp", "rl_hhi_ddpo"),
+            phase_ddpo("ddpo_mattergen", "rl_hhi_ddpo_mattergen_t1000")]
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     b = kern["buckets"]
     common = dict(route="cuda", impl="cuda", checked=True)
@@ -1153,6 +1366,9 @@ def main() -> int:
         launches_rl=[it["kernel_launches"] for it in rl["iterations"]],
         launches_rl_async=[it["kernel_launches"] for it in rl_async["iterations"]],
         launches_rl_mag=[it["kernel_launches"] for it in rl_mag["iterations"]],
+        # DiffCSP and DDPO run the plain net: checked to be 0
+        launches_diffcsp_ddpo=[csp["iteration"]["kernel_launches"]] + [
+            it["kernel_launches"] for rec in ddpo for it in rec["iterations"]],
         max_abs_err=kern["max_abs_err_f32"],
         max_abs_err_bf16=kern["max_abs_err_bf16"],
         # one layer-eval of the batch: the sum over the bucket shapes, f32

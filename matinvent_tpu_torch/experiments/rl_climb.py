@@ -96,7 +96,8 @@ def summarize(out: Path, recipe: str, iterations: int) -> dict:
     reward = "+".join(p["name"] for p in cfg["reward"]["prop_cfg"])
     summary = dict(
         iterations=iterations, **curve_stats(curve),
-        run=recipe, family="mattergen", reward=reward,
+        run=recipe, reward=reward,
+        family="diffcsp" if cfg["model"].get("class") == "DiffCSPSuite" else "mattergen",
         timesteps=cfg["model"]["model_cfg"]["timesteps"],
         batch=cfg["model"]["sample_cfg"]["batch_size"],
         reward_curve=[round(v, 4) for v in curve],

@@ -17,6 +17,17 @@ passed. This differs from the JAX package, whose config key
 ``fused_edge_sampling`` defaults to false; the port has no such key (the
 config reader drops it).
 
+``sample(record_traj=True)`` records each transition (the state entering
+the step, the post-corrector coords, the realized next state) and the
+log-probs of its draws, on the plain net whatever ``fused_edge`` says:
+``forward_logprob`` recomputes them for DDPO (``parallel/train.py``) and
+must differentiate, and the kernel's rounding would move the importance
+ratios off 1. The recorder wraps the post-corrector coords into [0, 1)
+before the predictor, so the replay of the recorded state repeats its
+arithmetic exactly (the JAX recorder keeps them unwrapped, which moves the
+replayed log-probs by rounding). ``fixed_types`` holds the types through
+the chain (CSP mode; the sampler does not offer it yet).
+
 The training half (``add_noise``, ``sample_losses``, ``kl_reg``,
 ``rl_timestep_loss``, ``rl_chunk_loss``) always runs the f32 net on the
 plain edge path, as the JAX package trains its XLA net: the edge kernel has
@@ -37,7 +48,7 @@ from torch import nn
 
 from matinvent_tpu_torch.device import resolve_device
 from matinvent_tpu_torch.models.batch import CrystalBatch
-from matinvent_tpu_torch.models.diffcsp import sinusoidal_time_embedding
+from matinvent_tpu_torch.models.diffcsp import norm_logpdf, sinusoidal_time_embedding
 from matinvent_tpu_torch.models.mattergen.corruption import (
     LatticeVPSDE,
     TypeD3PM,
@@ -45,6 +56,7 @@ from matinvent_tpu_torch.models.mattergen.corruption import (
 )
 from matinvent_tpu_torch.models.mattergen.score_net import MatterGenScoreNet
 from matinvent_tpu_torch.ops.segment import graph_mean
+from matinvent_tpu_torch.ops.wrapped_normal import log_prob_wrapped_normal
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -462,9 +474,12 @@ class MatterGenDiffusion(nn.Module):
 
     def _sample_step(
         self, carry, i: int, *, num_atoms, mask, sigma_lim, noise: NoiseSource,
-        conditions, guidance, tables, fused_edge: bool,
+        conditions, guidance, tables, fused_edge: bool, record_traj: bool = False,
+        fixed_types: bool = False,
     ):
-        """One predictor-corrector update of one (sub-)batch at grid step i."""
+        """One predictor-corrector update of one (sub-)batch at grid step i:
+        the next state and, with ``record_traj``, the transition's record
+        (else None). ``fixed_types`` holds the types (CSP mode)."""
         c = self.config
         N = c.timesteps
         B, A = mask.shape
@@ -481,15 +496,22 @@ class MatterGenDiffusion(nn.Module):
             )
 
         cell_t, pos_t, types_t = carry
+        cell_in, pos_in = cell_t, pos_t
         draws = noise.step(i, B, A, self.d3pm.vocab, c.n_corrector, mask.device)
         nz = tb["nz"]
 
         # corrector: Langevin on coords (snr-scaled)
+        corr_mu = pos_t  # the first kick's mean (the recorder's)
         for ci in range(c.n_corrector):
             preds = net_preds(cell_t, pos_t, types_t)
             score = preds["pos"] * tb["inv_sigma"]
             mu = pos_t - tb["corr_step"] * score
             pos_t = mu + tb["corr_noise"] * (nz * draws.corr[ci])
+            if ci == 0:
+                corr_mu = mu
+        if record_traj:
+            # the replay sees the wrapped coords: let the predictor too
+            pos_t = pos_t % 1.0
 
         # predictor
         preds = net_preds(cell_t, pos_t, types_t)
@@ -506,15 +528,120 @@ class MatterGenDiffusion(nn.Module):
         pos_next = (pos_t - tb["p_step"] * score + nz * tb["p_std"] * draws.pos) % 1.0
 
         # types: D3PM ancestral draw from the tempered posterior; the last
-        # grid step takes its mode
-        post_logits = self.d3pm.posterior_logits(
-            types_t, preds["atomic_numbers"], t_vec
-        ) / c.type_temperature
-        if i == N - 1:
-            types_next = torch.argmax(post_logits, dim=-1)
+        # grid step takes its mode (held in CSP mode)
+        if fixed_types:
+            types_next = types_t
         else:
-            types_next = torch.argmax(post_logits + draws.gumbel, dim=-1)
-        return cell_next, pos_next, types_next
+            post_logits = self.d3pm.posterior_logits(
+                types_t, preds["atomic_numbers"], t_vec
+            ) / c.type_temperature
+            if i == N - 1:
+                types_next = torch.argmax(post_logits, dim=-1)
+            else:
+                types_next = torch.argmax(post_logits + draws.gumbel, dim=-1)
+        if not record_traj:
+            return (cell_next, pos_next, types_next), None
+        # the transition's log-probs, each gated by nz: the last grid step is
+        # deterministic (noise off, argmax types) and records 0
+        lp_cell, lp_pos, lp_types = self._transition_logprobs(
+            tb, mask, sigma_lim, mean_n, cell_next, pos_t, corr_mu, score, pos_next,
+            None if fixed_types else post_logits, types_next,
+        )
+        rec = dict(
+            cell_in=cell_in, pos_in=pos_in, types_in=types_t, pos_mid=pos_t,
+            cell=cell_next, pos=pos_next, types=types_next,
+            log_prob_cell=lp_cell, log_prob_pos=lp_pos, log_prob_types=lp_types,
+        )
+        return (cell_next, pos_next, types_next), rec
+
+    @staticmethod
+    def _transition_logprobs(tb, mask, sigma_lim, mean_n, cell_next, pos_mid, corr_mu,
+                             score, pos_next, post_logits, types_next):
+        """(log_prob_cell, log_prob_pos, log_prob_types) ``[B]`` of one
+        transition; the recorder and ``forward_logprob`` share them."""
+        nz, tiny = tb["nz"], 1e-12
+        lp_cell = nz * norm_logpdf(
+            cell_next, sigma_lim * mean_n, torch.clamp(sigma_lim * tb["post_std"], min=tiny)
+        ).mean(dim=(1, 2))
+        lp_pos_corr = nz * graph_mean(
+            log_prob_wrapped_normal(
+                pos_mid % 1.0, corr_mu % 1.0, torch.clamp(tb["corr_noise"], min=tiny)
+            ).mean(dim=-1),
+            mask,
+        )
+        mu_pred = (pos_mid - tb["p_step"] * score) % 1.0
+        lp_pos_pred = nz * graph_mean(
+            log_prob_wrapped_normal(pos_next, mu_pred, torch.clamp(tb["p_std"], min=tiny)).mean(dim=-1),
+            mask,
+        )
+        if post_logits is None:
+            lp_types = torch.zeros_like(lp_cell)
+        else:
+            lp = torch.log_softmax(post_logits, dim=-1)
+            lp_types = nz * graph_mean(torch.gather(lp, -1, types_next[..., None])[..., 0], mask)
+        return lp_cell, lp_pos_corr + lp_pos_pred, lp_types
+
+    # -------------------------------------------------- DDPO policy gradients
+    def forward_logprob(
+        self, state: Mapping[str, Any], num_atoms, mask, tables=None, conditions=None,
+        guidance: float = 0.0, fixed_types=None,
+    ):
+        """Differentiable log-probs of stored transitions: ``state`` holds
+        ``step`` (the grid index: an int, or ``[B]`` for one per row),
+        ``cell_in``, ``pos_in``, ``types_in``, ``pos_mid`` and the realized
+        ``cell``, ``pos``, ``types``.
+        ``conditions``, ``guidance`` and ``fixed_types`` must be those the
+        trajectory was sampled with. Runs the plain net in the sampling
+        dtype, as the recorder did. Returns (lp_cell, lp_types, lp_pos,
+        predictions)."""
+        c = self.config
+        if c.n_corrector != 1:
+            raise NotImplementedError(
+                "MatterGen DDPO replay supports n_corrector=1 (the default); "
+                "intermediate corrector states are not recorded"
+            )
+        tables = tables if tables is not None else self._step_tables()
+        B = num_atoms.shape[0]
+        step = torch.as_tensor(state["step"])
+        if step.dim() == 0:
+            tb = {k: v[int(step)] for k, v in tables.items()}
+            t_vec = tb["t"].expand(B)
+            time_emb = tb["time_emb"][None, :].expand(B, c.time_dim)
+        else:
+            # one step per row: per-row coefficients broadcast over the
+            # atoms, the gate nz over the per-crystal log-probs
+            idx = step.to(tables["t"].device).long()
+            tb = {k: v[idx][:, None, None] for k, v in tables.items() if k not in ("t", "time_emb", "nz")}
+            tb["nz"] = tables["nz"][idx]
+            t_vec, time_emb = tables["t"][idx], tables["time_emb"][idx]
+        sigma_lim = self.cell_sde.limit_std(num_atoms)[:, None, None]
+        dtype = _DTYPES[c.sample_dtype]
+
+        def net_eval(cell_t, pos_t, types_t):
+            noised = MGNoised(t_vec, time_emb, types_t, pos_t, cell_t)
+            preds = self._guided_preds(
+                noised, num_atoms, mask, conditions, guidance, fused_edge=False, dtype=dtype,
+            )
+            return {k: v.to(torch.float32) for k, v in preds.items()}
+
+        cell_in, pos_in, types_in, pos_mid = (
+            state["cell_in"], state["pos_in"], state["types_in"], state["pos_mid"]
+        )
+        preds_c = net_eval(cell_in, pos_in, types_in)
+        corr_mu = pos_in - tb["corr_step"] * (preds_c["pos"] * tb["inv_sigma"])
+        preds = net_eval(cell_in, pos_mid, types_in)
+        mean_n = (cell_in / sigma_lim - tb["eps_coef"] * preds["cell"]) * tb["inv_sqrt_alpha"]
+        score = preds["pos"] * tb["inv_sigma"]
+        post_logits = None
+        if fixed_types is None:
+            post_logits = self.d3pm.posterior_logits(
+                types_in, preds["atomic_numbers"], t_vec
+            ) / c.type_temperature
+        lp_cell, lp_pos, lp_types = self._transition_logprobs(
+            tb, mask, sigma_lim, mean_n, state["cell"], pos_mid, corr_mu, score,
+            state["pos"], post_logits, state["types"],
+        )
+        return lp_cell, lp_types, lp_pos, preds
 
     def _finalize(self, state, mask, num_atoms) -> CrystalBatch:
         cell, pos, types = state
@@ -536,20 +663,47 @@ class MatterGenDiffusion(nn.Module):
         guidance: float = 0.0,
         *,
         fused_edge: bool = True,
-    ) -> CrystalBatch:
-        """Predictor-corrector ancestral sampling of one padded batch."""
+        record_traj: bool = False,
+        fixed_types: torch.Tensor | None = None,
+    ):
+        """Predictor-corrector ancestral sampling of one padded batch.
+
+        ``fixed_types`` ``[B, A]`` (1-based) holds the types through the
+        chain (CSP mode). With ``record_traj`` returns ``(batch,
+        trajectory)``: the transitions' states and log-probs stacked
+        ``[N, B, ...]`` and ``step [N]``, recorded on the plain net (the
+        kernel's rounding would move the replay's importance ratios off 1);
+        else the batch alone."""
+        if record_traj and self.config.n_corrector != 1:
+            # one (corr_mu, pos_mid) pair is recorded per grid step
+            raise NotImplementedError(
+                "record_traj=True supports n_corrector=1 (the default); "
+                "intermediate corrector states are not recorded"
+            )
         noise = _as_noise(noise)
         A = int(max_atoms) if max_atoms is not None else 20
         num_atoms = torch.clamp(num_atoms.to(self.device), max=A)
         state, mask, sigma_lim = self._sample_init(noise, num_atoms, A)
+        if fixed_types is not None:
+            types = torch.clamp(fixed_types.to(self.device).long() - 1, 0, self.d3pm.num_classes - 1)
+            state = (state[0], state[1], types)
         tables = self._step_tables()
+        rec: dict[str, list] = {}
         for i in range(self.config.timesteps):
-            state = self._sample_step(
+            state, ys = self._sample_step(
                 state, i, num_atoms=num_atoms, mask=mask, sigma_lim=sigma_lim,
                 noise=noise, conditions=conditions, guidance=guidance,
-                tables=tables, fused_edge=fused_edge,
+                tables=tables, fused_edge=fused_edge and not record_traj,
+                record_traj=record_traj, fixed_types=fixed_types is not None,
             )
-        return self._finalize(state, mask, num_atoms)
+            for k, v in (ys or {}).items():
+                rec.setdefault(k, []).append(v)
+        final = self._finalize(state, mask, num_atoms)
+        if not record_traj:
+            return final
+        traj = {k: torch.stack(v) for k, v in rec.items()}
+        traj["step"] = torch.arange(self.config.timesteps, device=self.device)
+        return final, traj
 
     @torch.no_grad()
     def sample_bucketed(
@@ -589,7 +743,7 @@ class MatterGenDiffusion(nn.Module):
                     mask=inits[bi][1], sigma_lim=inits[bi][2], noise=noises[bi],
                     conditions=conds[bi], guidance=guidance, tables=tables,
                     fused_edge=fused_edge,
-                )
+                )[0]
                 for bi in range(n_b)
             ]
         return [

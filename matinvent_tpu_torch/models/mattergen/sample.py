@@ -2,7 +2,7 @@
 
 Draws num-atoms from a dataset histogram on the host, splits the batch into
 size buckets (each padded to its own atom cap, so the dense O(A^2) edge work
-is not spent on padding), runs ``MatterGenDiffusion.sample_bucketed`` on the
+is not spent on padding; not when it records trajectories, as in JAX), runs ``MatterGenDiffusion.sample_bucketed`` on the
 model's device and returns the crystals in draw order as a ``CrystalBatch``;
 ``generate`` turns them into host-side sample dicts and ``Structure`` objects.
 Histograms beyond the built-in ones come from ``register_num_atoms_distribution``
@@ -13,7 +13,7 @@ from __future__ import annotations
 import functools
 import json
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +39,8 @@ def register_num_atoms_distribution(name: str, hist) -> None:
     if arr.sum() <= 0:
         raise ValueError(f"histogram {name} has no mass")
     NUM_ATOMS_DISTRIBUTIONS[name] = arr / arr.sum()
+    # one namespace for both sampler families: the DiffCSP sampler's too
+    ATOM_DIST[name] = NUM_ATOMS_DISTRIBUTIONS[name]
 
 
 def load_num_atoms_distributions(path: str) -> None:
@@ -179,7 +181,18 @@ class MatterGenSampler:
     seed: int = 0
     # False runs the sampling net's plain edge branch instead of the kernel
     fused_edge: bool = True
+    # record each launch's trajectory on the plain net, for DDPO; turns the
+    # size buckets off
+    record_trajectories: bool = False
     _generator: torch.Generator | None = field(default=None, init=False, repr=False)
+    # the last recorded trajectory ([N, B, ...] tensors) and what its replay
+    # needs: the clamped num-atoms, and the conditioning, guidance and fixed
+    # types the behaviour policy sampled with
+    last_trajectory: Any = None
+    last_num_atoms: Any = None
+    last_conditions: Any = None
+    last_guidance: float = 0.0
+    last_fixed_types: Any = None
 
     def __post_init__(self):
         if self.num_atoms_distribution_file:
@@ -230,13 +243,22 @@ class MatterGenSampler:
                 for k, v in self.properties_to_condition_on.items()
             }
         gen = self._generator_for(device)
-        if self.size_buckets > 1 and len(num_atoms) >= 2 * self.size_buckets:
+        if (self.size_buckets > 1 and not self.record_trajectories
+                and len(num_atoms) >= 2 * self.size_buckets):
             return self._launch_bucketed(model, num_atoms, conditions, gen)
-        return model.sample(
+        out = model.sample(
             gen, torch.as_tensor(num_atoms, device=device), max_atoms=self.max_atoms,
             conditions=conditions, guidance=float(self.diffusion_guidance_factor),
-            fused_edge=self.fused_edge,
+            fused_edge=self.fused_edge, record_traj=self.record_trajectories,
         )
+        if not self.record_trajectories:
+            return out
+        final, self.last_trajectory = out
+        self.last_num_atoms = final.num_atoms
+        self.last_conditions = conditions
+        self.last_guidance = float(self.diffusion_guidance_factor)
+        self.last_fixed_types = None
+        return final
 
     def _launch_bucketed(
         self, model: MatterGenDiffusion, num_atoms: np.ndarray, conditions, gen

@@ -23,12 +23,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from matinvent_tpu_torch.device import resolve_device
 from matinvent_tpu_torch.models.mattergen.diffusion import (
     MatterGenConfig,
     MatterGenDiffusion,
 )
 from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
+from matinvent_tpu_torch.models.suite.base import ModelSuite
 from matinvent_tpu_torch.parallel.train import FinetuneStep
 from matinvent_tpu_torch.utils import msgpack
 from matinvent_tpu_torch.utils.config import read_flat_yaml, write_flat_yaml
@@ -166,7 +166,7 @@ def save_model(model: MatterGenDiffusion, save_dir: str | Path) -> None:
     write_flat_yaml(os.path.join(save_dir, "config.yaml"), cfg)
 
 
-class MatterGenSuite:
+class MatterGenSuite(ModelSuite):
     """Model facade of the RL loop: builds the diffusion module, loads or
     initializes its weights, and hands out a sampler and a fine-tune
     driver. A checkpoint's ``config.yaml`` is authoritative over
@@ -187,17 +187,9 @@ class MatterGenSuite:
             raise ValueError(
                 f"unknown MatterGen variant {model_name}; available: {sorted(AVA_MODEL_NAMES)}"
             )
-        self.model_name = model_name
-        self.sample_cfg = dict(sample_cfg or {})
-        self.finetune_cfg = dict(finetune_cfg or {})
-        self.model_path = model_path
-        self.config_overrides = dict(config_overrides or {})
-        self.seed = seed
-        self.device = resolve_device(device)
-        values = dict(model_cfg or {})
-        if model_path is not None and (Path(model_path) / "config.yaml").exists():
-            values = read_flat_yaml(Path(model_path) / "config.yaml")
-        values.update(self.config_overrides)
+        super().__init__(model_name, sample_cfg, finetune_cfg, model_path,
+                         config_overrides, seed, device)
+        values = self.resolve_model_config(model_cfg)
         values.setdefault("condition_fields", AVA_MODEL_NAMES[model_name])
         self.model_config = MatterGenConfig.from_dict(values)
 
@@ -216,9 +208,8 @@ class MatterGenSuite:
 
     def get_sampler(self) -> MatterGenSampler:
         s = self.sample_cfg
-        for key in ("target_compositions_dict", "record_trajectories"):
-            if s.get(key):
-                raise NotImplementedError(f"sample_cfg {key!r} is not ported")
+        if s.get("target_compositions_dict"):
+            raise NotImplementedError("sample_cfg 'target_compositions_dict' is not ported")
         return MatterGenSampler(
             batch_size=s.get("batch_size"),
             num_batches=s.get("num_batches"),
@@ -228,6 +219,7 @@ class MatterGenSuite:
             diffusion_guidance_factor=s.get("diffusion_guidance_factor", 0.0),
             properties_to_condition_on=s.get("properties_to_condition_on"),
             niggli_reduction=s.get("niggli_reduction", False),
+            record_trajectories=bool(s.get("record_trajectories", False)),
             seed=self.seed,
         )
 

@@ -3,19 +3,27 @@ port's entry point.
 
 Per RL iteration: sample -> invalid filter -> ``OptFilter`` (optional) ->
 cap at ``max_num`` -> save extxyz -> reward -> long-term memory and its
-metrics -> diversity filter -> top-k -> experience replay -> reward-weighted
-fine-tune of the agent against the frozen prior -> run state and periodic
-checkpoint. Sampling, the fine-tune and the device-side reward models (the
-property predictors, SynScore) run on the model's device; everything else
-on the host.
+metrics -> diversity filter -> top-k -> experience replay -> fine-tune ->
+run state and periodic checkpoint. The model is either family: the recipe's
+model section names its suite under ``class`` (``MatterGenSuite`` when
+absent, or ``DiffCSPSuite``). The fine-tune is the reward-weighted one of
+the agent against the frozen prior, or with ``finetune_mode: ddpo`` PPO
+policy gradients over the trajectory the sampler recorded this iteration
+(``parallel/train.py``), which write the ``ddpo_ratio_mean``,
+``ddpo_ratio_max`` and ``ddpo_clip_frac`` columns of ``metrics.csv``.
+Sampling, the fine-tune and the device-side reward models (the property
+predictors, SynScore) run on the model's device; everything else on the
+host.
 
 Options, as the JAX package has them: ``resume`` continues from the run
 state under ``<save_dir>/state`` (saved every ``state_save_freq`` steps and
 on the last), ``profile_dir`` writes a ``torch.profiler`` Chrome trace of
 the first ``profile_steps`` iterations, and ``async_sampling`` samples
 iteration t+1 with the pre-fine-tune-t weights while the host filters and
-scores iteration t. DDPO, MLIP relaxation (``sample_cfg.mlip_opt``) and
-the calculators that are not ported (ALIGNN, DFT, MLIP) raise
+scores iteration t (not with ``ddpo``, which raises ``ValueError``: DDPO
+needs the current iteration's trajectory). MLIP relaxation
+(``sample_cfg.mlip_opt``), CSP mode (``target_compositions_dict``) and the
+calculators that are not ported (ALIGNN, DFT, MLIP) raise
 ``NotImplementedError``.
 
     python -m matinvent_tpu_torch.pipeline.mat_invent --recipe rl_hhi_rich5 \\
@@ -44,9 +52,13 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from matinvent_tpu_torch.models.diffcsp import DiffCSPDiffusion
 from matinvent_tpu_torch.models.sample import batch_to_structures, collate_data_list
+from matinvent_tpu_torch.models.suite.base import ModelSuite
+from matinvent_tpu_torch.models.suite.diffcsp import DiffCSPSuite
 from matinvent_tpu_torch.models.suite.mattergen import MatterGenSuite
 from matinvent_tpu_torch.ops import fused_edge
+from matinvent_tpu_torch.parallel.train import DDPOFinetuneStep, MatterGenDDPOStep
 from matinvent_tpu_torch.pipeline.base import ReinL
 from matinvent_tpu_torch.pipeline.filters import build_filter, invalid_filter
 from matinvent_tpu_torch.pipeline.logger import CSVLogger, Logger, setup_logging
@@ -68,13 +80,16 @@ CALCULATORS = {
     "PropertyPredictor": (PropertyPredictor, True),
     "SynScore": (SynScore, True),
 }
+# a model section's ``class`` (the last component of the JAX config's
+# ``_target_``; MatterGenSuite when absent)
+SUITES = {"MatterGenSuite": MatterGenSuite, "DiffCSPSuite": DiffCSPSuite}
 
 
 class MatInvent(ReinL):
     def __init__(
         self,
         rl_epoch: int,
-        model_suite: MatterGenSuite,
+        model_suite: ModelSuite,
         reward: Reward,
         sample_cfg: dict,
         finetune_cfg: dict,
@@ -96,10 +111,8 @@ class MatInvent(ReinL):
     ) -> None:
         if finetune_mode not in ("reward_weighted", "ddpo"):
             raise ValueError(f"unknown finetune_mode {finetune_mode!r}")
-        if finetune_mode == "ddpo":
-            if async_sampling:
-                raise ValueError("ddpo finetuning is incompatible with async_sampling")
-            raise NotImplementedError("the ddpo fine-tune is not ported")
+        if finetune_mode == "ddpo" and async_sampling:
+            raise ValueError("ddpo finetuning is incompatible with async_sampling")
         super().__init__(
             rl_epoch=rl_epoch, model_suite=model_suite, reward=reward,
             sample_cfg=sample_cfg, finetune_cfg=finetune_cfg, save_dir=save_dir,
@@ -122,6 +135,10 @@ class MatInvent(ReinL):
         # the fine-tune's draws: a stream of their own, apart from the
         # sampler's (seeded with ``seed``)
         self.generator = torch.Generator(device=self.agent.device).manual_seed(seed + 1)
+        # 'ddpo' trains on this iteration's recorded trajectory only (replay
+        # entries carry none)
+        self.finetune_mode = finetune_mode
+        self.ddpo = self._ddpo_step() if finetune_mode == "ddpo" else None
 
         # iteration t+1's sampling runs in a worker thread, launched before
         # the host filters and scores iteration t and joined before the
@@ -130,7 +147,7 @@ class MatInvent(ReinL):
         self._sampling_pool: ThreadPoolExecutor | None = None
         self._pending: Future | None = None
         if async_sampling:
-            if self.agent.device.type == "cuda" and self.sampler.fused_edge:
+            if self.agent.device.type == "cuda" and getattr(self.sampler, "fused_edge", False):
                 fused_edge._launch_fn()  # build and load the kernel before the thread
             self._sampling_pool = ThreadPoolExecutor(1, thread_name_prefix="sampling")
 
@@ -142,6 +159,24 @@ class MatInvent(ReinL):
         self._start_step = 0
         if resume:
             self._try_resume()
+
+    def _ddpo_step(self) -> DDPOFinetuneStep:
+        self.sampler.record_trajectories = True
+        ft = self.finetune_cfg
+        # the recorded trajectory always has the model's full T steps
+        t_traj = int(self.agent.config.timesteps)
+        accum = int(ft.get("accum_steps", 50))
+        common = dict(
+            lr=float(ft.get("lr", 1e-5)),
+            clip_eps=float(ft.get("clip_eps", 0.2)),
+            chunk=accum if t_traj % accum == 0 else t_traj,
+            adv_norm=bool(ft.get("adv_norm", True)),
+            epochs=int(ft.get("ddpo_epochs", 1)),
+            max_grad_norm=float(ft.get("max_grad_norm", 1.0)),
+        )
+        if isinstance(self.agent, DiffCSPDiffusion):
+            return DDPOFinetuneStep(step_lr=self.sampler.resolved_step_lr(), **common)
+        return MatterGenDDPOStep(**common)
 
     def _try_resume(self):
         loaded = load_run_state(self.state_dir)
@@ -224,7 +259,7 @@ class MatInvent(ReinL):
             return
         device = self.agent.device
         batch = collate_data_list(data_list, max_atoms=self.sampler.max_atoms).to(device)
-        props = self.sampler.properties_to_condition_on
+        props = getattr(self.sampler, "properties_to_condition_on", None)
         conditions = (
             {k: torch.full((len(data_list),), float(v), device=device) for k, v in props.items()}
             if props else None
@@ -238,6 +273,35 @@ class MatInvent(ReinL):
         )
         for e, m in enumerate(epoch_metrics):
             logging.info(f"Epoch {e}: " + ", ".join(f"{k}: {v:.4f}" for k, v in m.items()))
+
+    def ft_step_ddpo(self, sample_list: List[dict], rewards: np.ndarray):
+        """DDPO over the rows of this iteration's recorded trajectory that
+        were scored (``batch_index``); returns the ``ddpo_*`` metrics."""
+        traj = self.sampler.last_trajectory
+        if traj is None or len(sample_list) == 0:
+            logging.warning("ddpo ft skipped: no trajectory or no scored samples")
+            return {}
+        device = self.agent.device
+        num_atoms = self.sampler.last_num_atoms
+        rows = torch.as_tensor([d["batch_index"] for d in sample_list], device=device)
+        mask = torch.arange(self.sampler.max_atoms, device=device)[None, :] < num_atoms[:, None]
+        replay = {}
+        if isinstance(self.ddpo, MatterGenDDPOStep):
+            # replay under the behaviour policy's conditioning, guidance and
+            # fixed types (whole-batch tensors: the replay takes the rows)
+            replay = dict(conditions=self.sampler.last_conditions,
+                          guidance=float(self.sampler.last_guidance),
+                          fixed_types=self.sampler.last_fixed_types)
+        logging.info(f"DDPO batch: {len(sample_list)} of {num_atoms.shape[0]} crystals")
+        loss = self.ddpo.run(
+            self.agent, traj, num_atoms, mask,
+            torch.as_tensor(rewards, dtype=torch.float32, device=device), rows=rows, **replay,
+        )
+        stats = self.ddpo.last_stats
+        logging.info(f"DDPO loss: {loss:.5f}" + "".join(f" {k}={v:.4f}" for k, v in stats.items()))
+        for e, st in enumerate(self.ddpo.epoch_stats):
+            logging.info(f"DDPO epoch {e}: " + ", ".join(f"{k}={v!r}" for k, v in st.items()))
+        return {f"ddpo_{k}": v for k, v in stats.items()}
 
     def rl_step(self):
         logging.info(f"*****   LOOP {self.step} START   *****")
@@ -304,7 +368,11 @@ class MatInvent(ReinL):
                 # the pending launch samples with these weights: wait for it
                 # (re-raising its exception) before the fine-tune writes them
                 self._pending.result()
-            self.ft_step(ft_data, ft_reward)
+            if self.finetune_mode == "ddpo":
+                # policy gradients over this iteration's recorded trajectory
+                log_dict.update(self.ft_step_ddpo(sample_list, rewards))
+            else:
+                self.ft_step(ft_data, ft_reward)
 
         log_dict.update(self.timer.pop())
         if self.logger is not None:
@@ -390,7 +458,10 @@ def build(cfg: dict, out: str, device: str | None = None) -> MatInvent:
     """The pipeline of a resolved recipe, writing under ``out``."""
     out_dir = Path(out)
     model_cfg = dict(cfg["model"])
-    suite = MatterGenSuite(**model_cfg, device=device)
+    name = model_cfg.pop("class", "MatterGenSuite")
+    if name not in SUITES:
+        raise NotImplementedError(f"the model suite {name!r} is not ported")
+    suite = SUITES[name](**model_cfg, device=device)
     r = cfg["reward"]
     props = [
         {**p, "calculator": build_calculator(p["calculator"], out_dir, suite.device)}

@@ -13,6 +13,19 @@ the run's output directory.
 the h256/L6 checkpoint ``pretrained_geneval_r4`` with the ``corpus_r4``
 histogram, rewarded by the predicted magnetic density (``maxv`` 0.04).
 
+``diffcsp_hhi`` is the JAX package's default run, ``configs/base.yaml``
+with ``model/diffcsp.yaml``, ``pipeline/mat_invent.yaml`` and
+``reward/hhi.yaml`` resolved (192 samples per iteration, the base sample
+filter, the reward-weighted fine-tune), on the in-repo DiffCSP checkpoint
+``experiments/results/pretrained``. ``rl_hhi_ddpo`` and
+``rl_hhi_ddpo_mattergen_t1000`` hold the values of the archived JAX DDPO
+runs' ``hparams.yaml`` (``experiments/results/<name>/``): 128 samples of at
+most 8 atoms, ``sample_clip`` 30, ``finetune_mode: ddpo``, on the DiffCSP
+checkpoint (lr 3e-6, one PPO epoch) and on
+``experiments/results/pretrained_mattergen_t1000`` (lr 3e-5, two epochs).
+A model section names its suite under ``class`` (the last component of the
+YAML's ``_target_``; ``MatterGenSuite`` when absent).
+
 ``REWARDS`` holds the reward sections of ``configs/reward/*.yaml`` whose
 calculators the port runs (the entry point's ``--reward NAME``, Hydra's
 ``reward=NAME``): the empirical ones, the GNN property predictors and
@@ -154,3 +167,85 @@ _MAG["model"]["model_path"] = "experiments/results/pretrained_geneval_r4"
 _MAG["reward"] = _section(_prop("magnetic_density", _PP, "ascending", 0.0, 0.04))
 RECIPES["rl_mag_rich_dense"] = _MAG
 RECIPES["rl_hhi_rich5_opt_filter"]["pipeline"]["sample_cfg"]["filter"] = dict(BASE_FILTER)
+
+_DDPO_PIPELINE = {
+    "topk_ratio": 0.5,
+    "replay": True,
+    "replay_args": {"buffer_size": 100, "sample_size": 10, "reward_cutoff": 0.1},
+    "div_filter": True,
+    "df_args": {"tol": 3, "buff": 6},
+    "finetune_cfg": dict(_FINETUNE),
+    "finetune_mode": "ddpo",
+}
+
+
+def _ddpo(expname: str, rl_epoch: int, model: dict) -> dict:
+    return {
+        "expname": expname,
+        "seed": 0,
+        "rl_epoch": rl_epoch,
+        "sample_cfg": dict(_SAMPLE),
+        "eval_size": 16,
+        "pipeline": {"rl_epoch": rl_epoch, "seed": 0, "save_dir": "./", "save_freq": rl_epoch,
+                     "sample_cfg": dict(_SAMPLE), **copy.deepcopy(_DDPO_PIPELINE)},
+        "model": model,
+        "reward": copy.deepcopy(REWARDS["hhi"]),
+        "logger": {"save_dir": "./"},
+    }
+
+
+RECIPES["rl_hhi_ddpo"] = _ddpo("rl_hhi", 40, {
+    "class": "DiffCSPSuite",
+    "model_name": "diffcsp",
+    "seed": 0,
+    "model_cfg": {"hidden_dim": 128, "num_layers": 4, "time_dim": 256, "timesteps": 1000},
+    "sample_cfg": {"batch_size": 128, "num_batches": 1, "num_atoms_distribution": "mp_20",
+                   "max_atoms": 8},
+    "finetune_cfg": {"batch_size": 16, "timesteps": 1000, "lr": 3e-06, "ddpo_epochs": 1},
+    "model_path": "experiments/results/pretrained",
+    "config_overrides": {"sample_clip": 30.0},
+})
+RECIPES["rl_hhi_ddpo_mattergen_t1000"] = _ddpo("rl_hhi_ddpo_mattergen_t1000", 60, {
+    "model_name": "mattergen_base",
+    "seed": 0,
+    "model_cfg": {"hidden_dim": 256, "num_layers": 6, "time_dim": 256, "timesteps": 1000},
+    "sample_cfg": {"batch_size": 128, "num_batches": 1, "num_atoms_distribution": "mp_20",
+                   "max_atoms": 8, "diffusion_guidance_factor": 0.0},
+    "finetune_cfg": {"batch_size": 16, "timesteps": 1000, "lr": 3e-05, "ddpo_epochs": 2},
+    "model_path": "experiments/results/pretrained_mattergen_t1000",
+    "config_overrides": {"sample_clip": 30.0},
+})
+
+_BASE_SAMPLE = {"num_batches": 1, "max_num": 16, "filter": dict(BASE_FILTER)}
+RECIPES["diffcsp_hhi"] = {
+    "expname": "diffcsp_hhi",
+    "seed": 0,
+    "rl_epoch": 120,
+    "sample_cfg": copy.deepcopy(_BASE_SAMPLE),
+    "eval_size": 16,
+    "pipeline": {
+        "rl_epoch": 120,
+        "seed": 0,
+        "save_dir": "./",
+        "save_freq": 100,
+        "sample_cfg": copy.deepcopy(_BASE_SAMPLE),
+        "topk_ratio": 0.5,
+        "replay": True,
+        "replay_args": {"buffer_size": 100, "sample_size": 10, "reward_cutoff": 0.1},
+        "div_filter": True,
+        "df_args": {"tol": 3, "buff": 6},
+        "finetune_cfg": {"batch_size": 16, "accum_steps": 50, "epochs": 3, "sigma": 0.025},
+    },
+    "model": {
+        "class": "DiffCSPSuite",
+        "model_name": "diffcsp",
+        "seed": 0,
+        "model_cfg": {"hidden_dim": 128, "num_layers": 4, "time_dim": 256, "timesteps": 1000},
+        "sample_cfg": {"batch_size": 192, "num_batches": 1, "num_atoms_distribution": "mp_20",
+                       "max_atoms": 20},
+        "finetune_cfg": {"batch_size": 16, "timesteps": 1000, "lr": 0.0001},
+        "model_path": "experiments/results/pretrained",
+    },
+    "reward": copy.deepcopy(REWARDS["hhi"]),
+    "logger": {"save_dir": "./"},
+}

@@ -69,9 +69,10 @@ def restore(template: Any, state: Any) -> Any:
     return {k: restore(v, state[str(k)]) for k, v in template.items()}
 
 
-def _shapes(tree: Any) -> Any:
+def leaf_shapes(tree: Any) -> Any:
+    """The tree of leaf shapes of a nested dict of arrays."""
     if isinstance(tree, Mapping):
-        return {k: _shapes(v) for k, v in tree.items()}
+        return {k: leaf_shapes(v) for k, v in tree.items()}
     return tuple(np.shape(tree))
 
 
@@ -132,7 +133,7 @@ class PropertyGNN:
             y_mean, y_std = 0.0, 1.0
         # the restore follows the tree only: check the leaf shapes, so a
         # checkpoint of another width cannot be loaded silently
-        if _shapes(template) == _shapes(params):
+        if leaf_shapes(template) == leaf_shapes(params):
             sd = params_from_jax(params, prefix="")
             self.net.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
             self.y_mean, self.y_std = y_mean, y_std

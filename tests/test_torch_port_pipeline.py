@@ -375,7 +375,8 @@ def test_entry_point_runs_one_tiny_iteration_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    "finetune_mode=\"ddpo\"", "sample_cfg.mlip_opt=true",
+    # the knn edge style (ROADMAP Queue 1 item 7)
+    "model.config_overrides={\"edge_style\": \"knn\"}", "sample_cfg.mlip_opt=true",
     "sample_cfg.filter={\"metrics\": [\"validity\"], \"relaxer\": \"mlip\"}",
     # CSP mode, and a calculator class that is not ported (ALIGNN)
     "model.sample_cfg.target_compositions_dict={\"Fe\": 2, \"O\": 3}",

@@ -308,10 +308,12 @@ def test_async_sampling_reraises_the_workers_exception(tmp_path):
 
 
 def test_ddpo_raises_and_ddpo_with_async_is_refused(tmp_path):
+    """DDPO with async sampling is refused; DDPO alone, ported since, builds
+    a pipeline whose sampler records its trajectories."""
     with pytest.raises(ValueError, match="async_sampling"):
         tiny(tmp_path, 1, 'pipeline.finetune_mode="ddpo"', "pipeline.async_sampling=true")
-    with pytest.raises(NotImplementedError):
-        tiny(tmp_path, 1, 'pipeline.finetune_mode="ddpo"')
+    pipe = tiny(tmp_path, 1, 'pipeline.finetune_mode="ddpo"')
+    assert pipe.ddpo is not None and pipe.sampler.record_trajectories
 
 
 def test_profile_dir_writes_a_chrome_trace(tmp_path):
