@@ -59,7 +59,23 @@ launch counts set to 0 just before and read just after:
   PPO epoch's ratio statistics are reported. These phases run the plain
   net (DiffCSP's ``CSPNet`` has no fused edge branch, and DDPO records and
   replays on the plain net), so they launch none of the kernels: the count
-  is read and must stay 0.
+  is read and must stay 0;
+* the relaxer and the native phonon / elastic workflows (phase
+  ``relax_phonon``): 32 ``corpus_r5`` structures, LiF and PbS relaxed on
+  the card against the CPU, the Hessian of a 64-atom supercell, C_v and
+  the bulk modulus against the CPU, and the whole workflows' seconds per
+  structure, peak memory and NaN share on the card;
+* two RL iterations of ``rl_heat_capacity_t1000`` (phase ``rl_heat``):
+  128 crystals of ``pretrained_mattergen_t1000`` through the edge kernel
+  (8,000 launches each), scored by the MLIP bridge's heat-capacity worker
+  on the card;
+* CSP mode (phase ``csp``): 64 crystals of two fixed compositions at
+  T=1000 through the kernel, their types equal to the compositions;
+* knn edges (phase ``knn``): the same checkpoint with ``edge_style: knn``,
+  its score net on the card against the CPU, and 64 crystals sampled on
+  the plain net (the kernel takes fc edges only: 0 launches);
+* conditional DDPO (phase ``ddpo_cond``): two ``rl_cond_ddpo`` iterations,
+  held as the other DDPO phases.
 
 Kernel times are device times (CUDA graph replay, ``experiments/timing.py``).
 Each phase prints one JSON line (the harnesses print their own records
@@ -67,11 +83,12 @@ too); the line before the last is the ``{"kernels": [...]}`` record and the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that line. It needs one CUDA card;
 without one it exits non-zero at once. It writes the kernel builds
-(``matinvent_tpu_torch/_build/``) and, for phases ``rl`` and ``rl_async``,
-temporary directories that it removes.
+(``matinvent_tpu_torch/_build/``) and, for the RL phases, temporary
+directories that it removes.
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 import json
 import logging
@@ -90,15 +107,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from matinvent_tpu_torch.chem import phonon
 from matinvent_tpu_torch.chem.matcher import (
     DisorderedExactStructureMatcher,
     DisorderedStructureMatcher,
 )
 from matinvent_tpu_torch.chem.proxy_labels import label_structures
+from matinvent_tpu_torch.chem.relax import SoftSphereRelaxer
 from matinvent_tpu_torch.chem.structure import Structure, read_extxyz
 from matinvent_tpu_torch.chem.validity import cell_size_ok, smact_valid, structure_validity
 from matinvent_tpu_torch.csrc.build import build, build_host
 from matinvent_tpu_torch.experiments import fused_edge_ab, fused_edge_flat
+from matinvent_tpu_torch.experiments.phonon_check import phonon_pair, rocksalt
 from matinvent_tpu_torch.experiments.rl_profile import chunk_inputs, net_flops
 from matinvent_tpu_torch.experiments.timing import (
     PEAK_ROUTE,
@@ -120,6 +140,7 @@ from matinvent_tpu_torch.parallel.train_predictor import PredictorTrainer, label
 from matinvent_tpu_torch.pipeline import mat_invent
 from matinvent_tpu_torch.pipeline.filters import OptEval, ReferenceDataset
 from matinvent_tpu_torch.rewards.calculators import PropertyPredictor, SynScore
+from matinvent_tpu_torch.rewards.calculators.mlip import MLIPBridge
 from matinvent_tpu_torch.rewards.calculators.predictor import TASK_MODEL_DICT, PropertyGNN
 from matinvent_tpu_torch.utils.checkpoint import load_run_state
 
@@ -160,6 +181,14 @@ DIFFCSP_CKPT = ROOT / "experiments/results/pretrained"
 DIFFCSP_BATCH, DIFFCSP_MAX_ATOMS, DIFFCSP_CLIP, NET_TOL = 128, 8, 30.0, 2e-4
 # DDPO: the replay at the recording weights, mean ratio within 1e-5 of 1
 RATIO_TOL = 1e-5
+# the heat-capacity and conditional-DDPO recipes' MatterGen checkpoint
+# (h128/L4, T=1000); CSP mode's two compositions and batch; knn's batch
+MG_T1000 = ROOT / "experiments/results/pretrained_mattergen_t1000"
+CSP_COMPOSITIONS = [{"Na": 4, "Cl": 4}, {"Ti": 2, "O": 4}]
+CSP_BATCH, KNN_BATCH = 64, 64
+# phase relax_phonon: corpus structures, and the supercell budget of the
+# card-against-CPU comparison of C_v on structures as given
+PHONON_CORPUS, PHONON_SUPERCELL = 32, 32
 DEV = "cuda"
 BATCH, BUCKETS, MAX_ATOMS, SEED = 256, 4, 20, 0
 SOURCES = ("fused_edge", "edge_flat")  # csrc/<name>.cu
@@ -221,6 +250,21 @@ def check_close(out, ref, what: str, mask=None) -> float:
     if mask is not None and (out[~mask] != 0).any():
         raise AssertionError(f"{what}: padded rows not exactly 0")
     return err
+
+
+def check_path_kernel(plans, H: int, nf: int) -> dict:
+    """``fused_edge_chain`` against its plain version at a path's own
+    shapes: one call per (atom counts, cap) of ``plans`` at width ``H``,
+    f32 and bf16, on random card inputs padded as the path pads them; the
+    largest error of each dtype (``check_close``'s tolerance)."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    errs = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        errs[f"max_abs_err_{tag}"] = max(
+            check_kernel(*edge_inputs(len(na), cap, H, nf, dtype, gen,
+                                      torch.as_tensor(na, device=DEV)), nf)
+            for na, cap in plans)
+    return dict(shapes=[[len(na), cap, H] for na, cap in plans], **errs)
 
 
 def bound(args, num_atoms, nf: int) -> tuple[float, str]:
@@ -1252,7 +1296,9 @@ def phase_ddpo(name: str, recipe: str) -> dict:
                 st = pipe.ddpo.replay_stats(agent, traj, num_atoms, mask, rows=rows, **replay)
                 # the share of the recorded next cells held at the sample clip
                 cells = traj["next_lattices" if "next_lattices" in traj else "cell"]
-                clipped = (cells.abs() >= agent.config.sample_clip).float().mean().item()
+                clip = agent.config.sample_clip
+                clipped = (None if clip is None
+                           else (cells.abs() >= clip).float().mean().item())
                 replays.append(dict(st, seconds=time.perf_counter() - t1, rows=len(rows),
                                     clipped_cell_share=clipped))
                 return ddpo_run(agent, traj, num_atoms, mask, rewards, rows=rows, **replay)
@@ -1313,6 +1359,260 @@ def phase_ddpo(name: str, recipe: str) -> dict:
     return rec
 
 
+def _circular(a: Structure, b: Structure) -> float:
+    return float(np.abs((a.frac_coords - b.frac_coords + 0.5) % 1.0 - 0.5).max())
+
+
+def _relax_pair(structs, steps: int):
+    """Card and CPU relaxations of ``structs``: the card's structures and
+    energies, the largest circular coordinate and lattice gaps and the
+    energies' relative gaps per structure, and the card's seconds."""
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    card, e = SoftSphereRelaxer(steps=steps, max_atoms=20, device=DEV)(structs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    cpu, e_ref = SoftSphereRelaxer(steps=steps, max_atoms=20, device="cpu")(structs)
+    gaps = [max(_circular(a, b), float(np.abs(a.lattice - b.lattice).max()))
+            for a, b in zip(card, cpu)]
+    e_gaps = [abs(x - y) / max(abs(y), 1e-12) for x, y in zip(e, e_ref)]
+    return card, np.asarray(e), gaps, e_gaps, seconds
+
+
+def phase_relax_phonon() -> dict:
+    """The relaxer and the native phonon / elastic workflows on the card
+    against the CPU, with TF32 allowed (they must not depend on it):
+
+    * 32 ``corpus_r5`` structures and the JAX tests' LiF and PbS relaxed:
+      every one within 1e-4 (circular coords, lattice; energies relative)
+      after 1 step; the descent is unstable on most corpus structures, so
+      from the second step the card's and the CPU's rounding part them
+      (the shares that agree at 2 and 200 steps are reported), and at the
+      default 200 steps only LiF and PbS must agree;
+    * the Hessian of a 64-atom supercell within 1e-4 of its largest entry;
+    * C_v and the bulk modulus within 1e-3 (``phonon_pair``: C_v once the
+      floor modes are accounted for, the bulk modulus where both scale
+      searches end alike), of LiF and PbS through the whole workflow and
+      of 6 small corpus structures as given (supercells of at most
+      ``PHONON_SUPERCELL`` atoms);
+    * the whole heat-capacity and bulk-modulus workflows on the card for
+      all 34 (the MLIP worker's defaults): seconds per structure, peak
+      memory and the NaN share (fails if every value is NaN)."""
+    t0 = time.perf_counter()
+    old_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        corpus = read_extxyz(str(CORPUS), limit=PHONON_CORPUS)
+        sym = [rocksalt(4.0, 3, 9), rocksalt(5.9, 82, 16)]
+        structs = corpus + sym
+        _, _, gaps, e_gaps, _ = _relax_pair(structs, 1)
+        if max(gaps) > 1e-4 or max(e_gaps) > 1e-4:
+            raise AssertionError(f"relaxer at 1 step: card vs cpu {max(gaps)}, {max(e_gaps)}")
+        tracked = {}
+        for steps in (2, 200):
+            _, energies, gaps, e_gaps, relax_seconds = _relax_pair(structs, steps)
+            tracked[steps] = [g <= 1e-4 and eg <= 1e-4 for g, eg in zip(gaps, e_gaps)]
+        if not all(tracked[200][-2:]):
+            raise AssertionError(f"relaxer at 200 steps: LiF/PbS card vs cpu {gaps[-2:]}")
+
+        sc = phonon.supercell(rocksalt(3.8, 11, 17), (2, 4, 4))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        h = phonon.pair_hessian(sc, torch.device(DEV))
+        torch.cuda.synchronize()
+        hess_seconds = time.perf_counter() - t1
+        hess_peak = torch.cuda.max_memory_allocated()
+        ref = phonon.pair_hessian(sc, torch.device("cpu"))
+        hess_err = float((h.cpu() - ref).abs().max() / ref.abs().max())
+        if not hess_err <= 1e-4:
+            raise AssertionError(f"the {sc.num_atoms}-atom Hessian: card vs cpu {hess_err}")
+
+        small = [s for s in corpus if s.num_atoms <= 6][:6]
+        pairs = [phonon_pair(s, True, 160) for s in sym]
+        pairs += [phonon_pair(s, False, PHONON_SUPERCELL) for s in small]
+        for p in pairs:
+            if not (p["cv_gap"] <= 1e-3 and (p["bm_gap"] is None or p["bm_gap"] <= 1e-3)):
+                raise AssertionError(f"phonon workflows card vs cpu: {p}")
+        if sum(p["bm_gap"] is not None for p in pairs) < len(pairs) - 2:
+            raise AssertionError(f"the scale searches end apart on most structures: {pairs}")
+
+        workflows = {}
+        for name, fn in (("heat_capacity", phonon.gamma_heat_capacity),
+                         ("bulk_modulus", phonon.soft_sphere_bulk_modulus)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            v = fn(structs, device=DEV)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t1
+            nan_share = float(np.mean(~np.isfinite(v)))
+            if nan_share == 1.0:
+                raise AssertionError(f"every {name} is NaN")
+            workflows[name] = dict(seconds_per_structure=sec / len(structs), nan_share=nan_share,
+                                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                                   mean=float(np.nanmean(v)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    rec = dict(phase="relax_phonon", structures=len(structs),
+               relax_seconds_200_steps=relax_seconds,
+               relax_tracked={k: f"{sum(v)}/{len(v)}" for k, v in tracked.items()},
+               relaxed_energy_mean=float(np.mean(energies)),
+               hessian_atoms=sc.num_atoms, hessian_seconds=hess_seconds,
+               hessian_peak_memory_bytes=hess_peak, hessian_rel_err=hess_err,
+               card_vs_cpu=pairs, workflows=workflows, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def phase_rl_heat() -> dict:
+    """Two ``rl_heat_capacity_t1000`` iterations as the entry point builds
+    them, on the card, in a temporary directory: 128 crystals of
+    ``pretrained_mattergen_t1000`` sampled through the edge kernel (8,000
+    launches each), the invalid filter, the MLIP bridge's heat-capacity
+    worker on the card (its stderr names the native backend), memory,
+    replay and the reward-weighted fine-tune; a finite reward mean."""
+    t0 = time.perf_counter()
+
+    def run(log):
+        out = tempfile.mkdtemp(prefix="chip_smoke_rl_heat_")
+        try:
+            pipe = mat_invent.build(mat_invent.resolve("rl_heat_capacity_t1000", 2), out)
+            calc = pipe.reward.prop_cfg[0]["calculator"]
+            if not isinstance(calc, MLIPBridge) or calc.device.type != torch.device(DEV).type:
+                raise AssertionError(f"the reward's calculator is {calc!r}, not the bridge on the card")
+            c = pipe.agent.config
+            expected = c.num_layers * (1 + c.n_corrector) * c.timesteps
+            # the kernel at each iteration's bucket shapes, drawn from a copy
+            # of the sampler as its launches will draw them
+            plan_sampler = copy.deepcopy(pipe.sampler)
+            total = pipe.sample_cfg["batch_size"] * pipe.sample_cfg["num_batches"]
+            plans = []
+            for _ in range(pipe.rl_epoch):
+                na = plan_sampler._draw_num_atoms(total)
+                cuts, caps = plan_sampler.bucket_plan(na)
+                plans += [(na[idx], cap) for idx, cap in zip(cuts, caps)]
+            kernel = check_path_kernel(plans, c.hidden_dim, c.num_freqs)
+            iters = []
+            for step in range(pipe.rl_epoch):
+                pipe.step = step
+                it = _iteration(pipe, log, pipe.rl_step)
+                row = pipe.logger.rows[-1]
+                it["heat_capacity_mean"] = row.get("heat_capacity mean")
+                # _iteration clears the log first: this iteration's lines
+                it["worker_log"] = [m for m in log.messages if m.startswith("[mlip/")]
+                iters.append(it)
+            for it in iters:
+                if it["kernel_launches"] != expected:
+                    raise AssertionError(f"iteration {it['step']}: {it['kernel_launches']} "
+                                         f"launches, not {expected}")
+                if not math.isfinite(float(it["reward_mean"])):
+                    raise AssertionError(f"iteration {it['step']}: reward mean {it['reward_mean']}")
+                if not any("backend: native" in m for m in it["worker_log"]):
+                    raise AssertionError(f"iteration {it['step']}: worker log {it['worker_log']}")
+            return iters, kernel
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+
+    iters, kernel = _run_logged(run)
+    rec = dict(phase="rl_heat", recipe="rl_heat_capacity_t1000", kernel_vs_plain=kernel,
+               iterations=iters, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def phase_csp() -> dict:
+    """CSP mode: 64 crystals of two compositions at T=1000 from
+    ``pretrained_mattergen_t1000`` (``sample_clip`` 30, as its recipes),
+    unbucketed through the edge kernel; every row's types equal its
+    composition; their validity shares."""
+    t0 = time.perf_counter()
+    model = load_model(MG_T1000, device=DEV, config_overrides={"sample_clip": 30.0})
+    sampler = MatterGenSampler(batch_size=CSP_BATCH, num_batches=1, max_atoms=8, seed=SEED,
+                               size_buckets=BUCKETS, target_compositions_dict=CSP_COMPOSITIONS)
+    types, na = sampler._composition_batch(CSP_BATCH)
+    c = model.config
+    # one padded batch of the compositions' counts at cap max_atoms
+    kernel = check_path_kernel([(na, sampler.max_atoms)], c.hidden_dim, c.num_freqs)
+    fused_edge_chain.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    batch = sampler.launch(model)
+    torch.cuda.synchronize()
+    sample_seconds = time.perf_counter() - t1
+    launches = fused_edge_chain.launches
+    if launches != c.num_layers * (1 + c.n_corrector) * c.timesteps:
+        raise AssertionError(f"CSP sampling launched the edge kernel {launches} times")
+    if not (np.array_equal(batch.atom_types.cpu().numpy(), types)
+            and np.array_equal(batch.num_atoms.cpu().numpy(), na)):
+        raise AssertionError("the sampled types differ from the compositions")
+    if not torch.isfinite(batch.lattice).all():
+        raise AssertionError("CSP lattices are not finite")
+    _, strucs = batch_to_structures(batch)
+    rec = dict(phase="csp", checkpoint=str(MG_T1000.relative_to(ROOT)),
+               compositions=CSP_COMPOSITIONS, batch=CSP_BATCH, kernel_vs_plain=kernel,
+               kernel_launches=launches,
+               sample_seconds=sample_seconds, validity=measure_validity(strucs),
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def phase_knn() -> dict:
+    """``pretrained_mattergen_t1000`` with ``edge_style: knn``: its f32
+    score net on the card against the CPU within 2e-4 of scale, then 64
+    crystals at T=1000, which sample on the plain net (the edge kernel
+    takes fc edges only): no kernel launch."""
+    t0 = time.perf_counter()
+    over = {"edge_style": "knn", "sample_clip": 30.0}
+    model = load_model(MG_T1000, device=DEV, config_overrides=over)
+    cpu_model = load_model(MG_T1000, device="cpu", config_overrides=over)
+    c = model.config
+    rng = np.random.default_rng(0)
+    B, A = 64, 8
+    na = torch.from_numpy(rng.integers(1, A + 1, B))
+    mask = torch.arange(A)[None, :] < na[:, None]
+    x = MGNoised(
+        torch.full((B,), 0.5), torch.from_numpy(rng.normal(size=(B, c.time_dim)).astype(np.float32)),
+        torch.from_numpy(rng.integers(0, 100, (B, A))),
+        torch.from_numpy(rng.uniform(size=(B, A, 3)).astype(np.float32)),
+        torch.from_numpy((np.eye(3) * 4.0 + rng.normal(size=(B, 3, 3)) * 0.3).astype(np.float32)),
+    )
+    with torch.no_grad():
+        ref = cpu_model.apply_net(x, na, mask)
+        got = model.apply_net(MGNoised(*(v.to(DEV) for v in x)), na.to(DEV), mask.to(DEV))
+    net_err = 0.0
+    for k, r in ref.items():
+        err = (got[k].cpu() - r).abs()
+        if r.dim() == 3 and r.shape[1] == A:
+            err = err * mask[..., None]
+        rel = err.max().item() / max(1.0, r.abs().max().item())
+        if not rel <= NET_TOL:
+            raise AssertionError(f"knn score net {k}: card vs cpu {rel} > {NET_TOL}")
+        net_err = max(net_err, rel)
+    del cpu_model
+    sampler = MatterGenSampler(batch_size=KNN_BATCH, num_batches=1, max_atoms=A, seed=SEED,
+                               size_buckets=BUCKETS)
+    fused_edge_chain.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    batch = sampler.launch(model)
+    torch.cuda.synchronize()
+    sample_seconds = time.perf_counter() - t1
+    launches = fused_edge_chain.launches
+    if launches != 0:
+        raise AssertionError(f"the knn model launched the fc edge kernel {launches} times")
+    if not torch.isfinite(batch.lattice).all():
+        raise AssertionError("knn lattices are not finite")
+    _, strucs = batch_to_structures(batch)
+    rec = dict(phase="knn", checkpoint=str(MG_T1000.relative_to(ROOT)), cutoff=c.cutoff,
+               max_neighbors=c.max_neighbors, net_max_rel_err=net_err, net_tol=NET_TOL,
+               batch=KNN_BATCH, kernel_launches=launches, sample_seconds=sample_seconds,
+               validity=measure_validity(strucs), seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
 def instances(build_rec: dict, library: str, prefix: str) -> list[dict]:
     """The build's instances of ``library`` whose name starts with
     ``prefix``: registers, spills and shared memory of each."""
@@ -1353,6 +1653,11 @@ def main() -> int:
     csp = phase_diffcsp()
     ddpo = [phase_ddpo("ddpo_diffcsp", "rl_hhi_ddpo"),
             phase_ddpo("ddpo_mattergen", "rl_hhi_ddpo_mattergen_t1000")]
+    phase_relax_phonon()
+    rl_heat = phase_rl_heat()
+    csp_mode = phase_csp()
+    knn = phase_knn()
+    ddpo.append(phase_ddpo("ddpo_cond", "rl_cond_ddpo"))
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     b = kern["buckets"]
     common = dict(route="cuda", impl="cuda", checked=True)
@@ -1366,9 +1671,12 @@ def main() -> int:
         launches_rl=[it["kernel_launches"] for it in rl["iterations"]],
         launches_rl_async=[it["kernel_launches"] for it in rl_async["iterations"]],
         launches_rl_mag=[it["kernel_launches"] for it in rl_mag["iterations"]],
-        # DiffCSP and DDPO run the plain net: checked to be 0
+        launches_rl_heat=[it["kernel_launches"] for it in rl_heat["iterations"]],
+        launches_csp=csp_mode["kernel_launches"],
+        # DiffCSP, DDPO and knn edges run the plain net: checked to be 0
         launches_diffcsp_ddpo=[csp["iteration"]["kernel_launches"]] + [
             it["kernel_launches"] for rec in ddpo for it in rec["iterations"]],
+        launches_knn=knn["kernel_launches"],
         max_abs_err=kern["max_abs_err_f32"],
         max_abs_err_bf16=kern["max_abs_err_bf16"],
         # one layer-eval of the batch: the sum over the bucket shapes, f32

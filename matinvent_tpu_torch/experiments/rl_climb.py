@@ -13,9 +13,10 @@ output goes to ``process_<n>.log`` in the output directory. It then writes
 keys of the JAX run's ``experiments/results/rl_hhi_rich5_summary.json``
 (``iterations``, ``reward_first5_mean``, ``reward_last5_mean``,
 ``improvement``, ``reward_curve``), the means of the reward by ten
-iterations, the same numbers of the archived JAX run of the recipe
-(``experiments/results/<recipe>/metrics.csv``, its first ITERATIONS rows)
-under ``jax``, the card's name and power limit, the seconds per phase of
+iterations, the first-5 and last-5 means of each property and a DDPO
+run's ratio statistics, the same numbers of the archived JAX run of the
+recipe (``experiments/results/<recipe>/metrics.csv``, its first ITERATIONS
+rows) under ``jax``, the card's name and power limit, the seconds per phase of
 each iteration, each process's wall seconds and the step the second process
 resumed at; ``hparams.json`` names the repository's files relative to its
 root. Prints the summary as one JSON line. Extra ``--set`` and ``--device``
@@ -85,6 +86,28 @@ def reward_curve(path: Path, iterations: int | None = None) -> list[float]:
     return [float(r["reward mean"]) if r.get("reward mean") else float("nan") for r in rows]
 
 
+def column_stats(path: Path, iterations: int | None = None) -> dict:
+    """First-5 and last-5 means of each property's ``<name> mean`` column,
+    and, for a DDPO run, the ratio statistics over its iterations (the
+    keys of ``experiments/results/rl_cond_ddpo_summary.json``)."""
+    with open(path) as fh:
+        rows = list(csv.DictReader(fh))[:iterations]
+    out = {}
+    for col in rows[0] if rows else ():
+        if col.endswith(" mean") and col != "reward mean":
+            v = [float(r[col]) for r in rows if r.get(col)]
+            name = col[: -len(" mean")]
+            if v:
+                out[f"{name}_first5_mean"] = round(sum(v[:5]) / len(v[:5]), 4)
+                out[f"{name}_last5_mean"] = round(sum(v[-5:]) / len(v[-5:]), 4)
+    for col in ("ddpo_ratio_mean", "ddpo_ratio_max", "ddpo_clip_frac"):
+        v = [float(r[col]) for r in rows if r.get(col)]
+        if v:
+            out[f"{col}_mean"] = round(sum(v) / len(v), 6)
+            out[f"{col}_max"] = round(max(v), 6)
+    return out
+
+
 def summarize(out: Path, recipe: str, iterations: int) -> dict:
     with open(out / "metrics.csv") as fh:
         rows = list(csv.DictReader(fh))
@@ -101,12 +124,14 @@ def summarize(out: Path, recipe: str, iterations: int) -> dict:
         timesteps=cfg["model"]["model_cfg"]["timesteps"],
         batch=cfg["model"]["sample_cfg"]["batch_size"],
         reward_curve=[round(v, 4) for v in curve],
+        **column_stats(out / "metrics.csv"),
         seconds_per_phase={p: [float(r[p]) if r.get(p) else None for r in rows] for p in PHASES},
     )
     archived = ROOT / "experiments/results" / recipe / "metrics.csv"
     if archived.is_file():
         jax_curve = reward_curve(archived, iterations)
         summary["jax"] = dict(metrics=str(archived.relative_to(ROOT)), **curve_stats(jax_curve),
+                              **column_stats(archived, iterations),
                               reward_curve=[round(v, 4) for v in jax_curve])
     return summary
 

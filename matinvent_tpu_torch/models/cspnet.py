@@ -1,7 +1,10 @@
 """CSPNet and its layer (``matinvent_tpu/models/cspnet.py``).
 
-The edges are the dense fully connected graph of each crystal, a masked
-``[B, A, A, ...]`` tensor. The first edge-MLP layer is applied decomposed:
+The edges are a masked ``[B, A, A, ...]`` tensor: the dense fully
+connected graph of each crystal (``edge_style`` fc, the mean over the
+crystal's atoms), or its PBC radius and rank cutoff (knn,
+``ops.neighbors.radius_knn_mask``, the mean over each atom's neighbours).
+The first edge-MLP layer is applied decomposed:
 its input ``concat(h_i, h_j, lattice_ip, dist_emb)`` splits the weight into
 two ``[B, A, H]`` node terms, one ``[B, H]`` lattice term and the one true
 edge product over the distance embedding. The parameter stays one
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain
+from matinvent_tpu_torch.ops.neighbors import radius_knn_mask
 from matinvent_tpu_torch.ops.segment import masked_mean
 
 # flax.linen.LayerNorm's epsilon, which the checkpoints were trained with
@@ -37,6 +41,20 @@ def matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     package pins these geometry products to ``Precision.HIGHEST``."""
     a64, b64 = a.to(torch.float64), b.to(torch.float64)
     return (a64[..., :, :, None] * b64[..., None, :, :]).sum(-2).to(torch.float32)
+
+
+def edge_mask_and_denom(
+    edge_style: str, frac_coords, lattice, num_atoms, mask, cutoff: float, max_neighbors: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(``[B, A, A]`` edge mask, ``[B, A]`` f32 aggregation denominator):
+    fc edges and the crystal's atom count, or knn edges and each atom's
+    neighbour count."""
+    if edge_style == "knn":
+        edge_mask = radius_knn_mask(frac_coords, lattice, mask, cutoff=cutoff,
+                                    max_neighbors=max_neighbors)
+        return edge_mask, edge_mask.sum(dim=-1).to(torch.float32)
+    B, A = mask.shape
+    return mask[:, :, None] & mask[:, None, :], num_atoms.to(torch.float32)[:, None].expand(B, A)
 
 
 def sinusoids_embedding(x: torch.Tensor, n_frequencies: int = 10) -> torch.Tensor:
@@ -175,11 +193,13 @@ class CSPNet(nn.Module):
         pred_type: bool = True,
         pred_scalar: bool = False,
         edge_style: str = "fc",
+        cutoff: float = 6.0,
+        max_neighbors: int = 20,
     ):
         super().__init__()
-        if edge_style != "fc":
-            # the knn edge style (ops/neighbors.py) is not ported yet
-            raise NotImplementedError(f"edge_style {edge_style!r}: only 'fc' is ported")
+        if edge_style not in ("fc", "knn"):
+            raise ValueError(f"unknown edge_style {edge_style}")
+        self.edge_style, self.cutoff, self.max_neighbors = edge_style, cutoff, max_neighbors
         H = hidden_dim
         self.hidden_dim, self.latent_dim, self.num_layers = H, latent_dim, num_layers
         self.max_atoms, self.num_freqs = max_atoms, num_freqs
@@ -224,8 +244,10 @@ class CSPNet(nn.Module):
         frac_diff = (frac_coords[:, None, :, :] - frac_coords[:, :, None, :]) % 1.0
         # hoisted once per eval and shared across layers
         dist_emb = sinusoids_embedding(frac_diff.to(torch.float32), self.num_freqs).to(dtype)
-        edge_mask = mask[:, :, None] & mask[:, None, :]
-        denom = num_atoms.to(torch.float32)[:, None].expand(B, A)
+        edge_mask, denom = edge_mask_and_denom(
+            self.edge_style, frac_coords, lattice, num_atoms, mask,
+            self.cutoff, self.max_neighbors,
+        )
         # the layers' lattice term, once per eval
         lattice_ips = matmul3(lattice, lattice.transpose(-1, -2))
         for i in range(self.num_layers):

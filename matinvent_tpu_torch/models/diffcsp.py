@@ -216,7 +216,8 @@ class DiffCSPDiffusion(nn.Module):
         self.decoder = CSPNet(
             hidden_dim=c.hidden_dim, latent_dim=c.time_dim, num_layers=c.num_layers,
             max_atoms=c.max_atomic_num, num_freqs=c.num_freqs, ln=c.ln,
-            smooth=True, pred_type=True, edge_style=c.edge_style,
+            smooth=True, pred_type=True, edge_style=c.edge_style, cutoff=c.cutoff,
+            max_neighbors=c.max_neighbors,
         ).to(self.device)
         self.beta = BetaSchedule.create(c.timesteps, c.scheduler_mode)
         self.sigma = SigmaSchedule.create(c.timesteps, c.sigma_begin, c.sigma_end)

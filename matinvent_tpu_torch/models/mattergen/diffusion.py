@@ -13,9 +13,9 @@ Every random draw comes from a ``NoiseSource``: by default
 
 On the card the sampling net sends each layer's fc edge branch through the
 hand-written kernel (``ops.fused_edge``) unless ``fused_edge=False`` is
-passed. This differs from the JAX package, whose config key
-``fused_edge_sampling`` defaults to false; the port has no such key (the
-config reader drops it).
+passed; a model with knn edges samples on the plain net. This differs
+from the JAX package, whose config key ``fused_edge_sampling`` defaults to
+false; the port has no such key (the config reader drops it).
 
 ``sample(record_traj=True)`` records each transition (the state entering
 the step, the post-corrector coords, the realized next state) and the
@@ -26,7 +26,7 @@ ratios off 1. The recorder wraps the post-corrector coords into [0, 1)
 before the predictor, so the replay of the recorded state repeats its
 arithmetic exactly (the JAX recorder keeps them unwrapped, which moves the
 replayed log-probs by rounding). ``fixed_types`` holds the types through
-the chain (CSP mode; the sampler does not offer it yet).
+the chain (CSP mode, the sampler's ``target_compositions_dict``).
 
 The training half (``add_noise``, ``sample_losses``, ``kl_reg``,
 ``rl_timestep_loss``, ``rl_chunk_loss``) always runs the f32 net on the
@@ -247,6 +247,8 @@ class MatterGenDiffusion(nn.Module):
             num_freqs=c.num_freqs,
             condition_fields=tuple(c.condition_fields),
             edge_style=c.edge_style,
+            cutoff=c.cutoff,
+            max_neighbors=c.max_neighbors,
         ).to(self.device)
 
     def apply_net(
@@ -653,6 +655,13 @@ class MatterGenDiffusion(nn.Module):
             num_atoms=num_atoms,
         )
 
+    def _kernel_edges(self, fused_edge: bool) -> bool:
+        """Whether sampling runs the edge kernel: asked for, and fc edges
+        (the kernel takes a separable atom mask; a knn model samples on the
+        plain net, as the JAX package's ``fused_edge_sampling`` requires
+        fc)."""
+        return fused_edge and self.config.edge_style == "fc"
+
     @torch.no_grad()
     def sample(
         self,
@@ -693,7 +702,7 @@ class MatterGenDiffusion(nn.Module):
             state, ys = self._sample_step(
                 state, i, num_atoms=num_atoms, mask=mask, sigma_lim=sigma_lim,
                 noise=noise, conditions=conditions, guidance=guidance,
-                tables=tables, fused_edge=fused_edge and not record_traj,
+                tables=tables, fused_edge=self._kernel_edges(fused_edge) and not record_traj,
                 record_traj=record_traj, fixed_types=fixed_types is not None,
             )
             for k, v in (ys or {}).items():
@@ -742,7 +751,7 @@ class MatterGenDiffusion(nn.Module):
                     states[bi], i, num_atoms=num_atoms_buckets[bi],
                     mask=inits[bi][1], sigma_lim=inits[bi][2], noise=noises[bi],
                     conditions=conds[bi], guidance=guidance, tables=tables,
-                    fused_edge=fused_edge,
+                    fused_edge=self._kernel_edges(fused_edge),
                 )[0]
                 for bi in range(n_b)
             ]

@@ -7,6 +7,12 @@ model's device and returns the crystals in draw order as a ``CrystalBatch``;
 ``generate`` turns them into host-side sample dicts and ``Structure`` objects.
 Histograms beyond the built-in ones come from ``register_num_atoms_distribution``
 or from a JSON file (``num_atoms_distribution_file``).
+
+CSP mode (``target_compositions_dict``, a list of ``{element: count}``)
+cycles the fixed compositions over the batch and samples it unbucketed
+with the types held (``MatterGenDiffusion.sample(fixed_types=...)``), as
+the JAX sampler does; with trajectory recording it keeps the fixed types
+for the DDPO replay (``last_fixed_types``).
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from matinvent_tpu_torch.chem.composition import Composition
+from matinvent_tpu_torch.chem.data import Z_BY_SYMBOL
 from matinvent_tpu_torch.chem.niggli import niggli_reduce
 from matinvent_tpu_torch.chem.structure import Structure
 from matinvent_tpu_torch.models.batch import CrystalBatch
@@ -176,6 +184,8 @@ class MatterGenSampler:
     size_buckets: int = 1
     diffusion_guidance_factor: float = 0.0
     properties_to_condition_on: Dict[str, float] | None = None
+    # CSP mode: compositions ({element: count}) cycled over the batch
+    target_compositions_dict: List[Dict[str, float]] | None = None
     # Niggli-reduce the cells of the structures ``generate`` returns
     niggli_reduction: bool = False
     seed: int = 0
@@ -217,6 +227,24 @@ class MatterGenSampler:
             hist=np.asarray(NUM_ATOMS_DISTRIBUTIONS[self.num_atoms_distribution]),
         )
 
+    def _composition_batch(self, total: int) -> tuple[np.ndarray, np.ndarray]:
+        """CSP mode: ``[total, max_atoms]`` 1-based types and ``[total]``
+        atom counts of the fixed compositions, cycled over the batch."""
+        comps = [Composition({k: int(v) for k, v in c.items()})
+                 for c in self.target_compositions_dict]
+        types = np.zeros((total, self.max_atoms), np.int32)
+        n = np.zeros(total, np.int32)
+        for i in range(total):
+            comp = comps[i % len(comps)]
+            zs: list[int] = []
+            for el, cnt in comp.counts.items():
+                zs.extend([Z_BY_SYMBOL[el]] * int(cnt))
+            if len(zs) > self.max_atoms:
+                raise ValueError(f"composition {comp.formula} exceeds max_atoms={self.max_atoms}")
+            types[i, : len(zs)] = zs
+            n[i] = len(zs)
+        return types, n
+
     def _generator_for(self, device: torch.device) -> torch.Generator:
         # one stream per sampler, continued across launches
         if self._generator is None:
@@ -226,16 +254,25 @@ class MatterGenSampler:
     def launch(
         self, model: MatterGenDiffusion, batch_size: int | None = None,
         num_batches: int | None = None,
+        target_compositions_dict: List[Dict[str, float]] | None = None,
     ) -> CrystalBatch:
         """Sample ``batch_size * num_batches`` crystals on the model's device;
-        returns them in draw order, padded to ``max_atoms``."""
+        returns them in draw order, padded to ``max_atoms``. With target
+        compositions (here or the sampler's) the types are held fixed."""
         batch_size = batch_size or self.batch_size
         num_batches = num_batches or self.num_batches
         if batch_size is None or num_batches is None:
             raise ValueError("batch_size and num_batches are required")
         total = batch_size * num_batches
         device = model.device
-        num_atoms = self._draw_num_atoms(total)
+        if target_compositions_dict:
+            self.target_compositions_dict = target_compositions_dict
+        fixed_types = None
+        if self.target_compositions_dict:
+            types, num_atoms = self._composition_batch(total)
+            fixed_types = torch.as_tensor(types, device=device)
+        else:
+            num_atoms = self._draw_num_atoms(total)
         conditions = None
         if self.properties_to_condition_on:
             conditions = {
@@ -243,13 +280,14 @@ class MatterGenSampler:
                 for k, v in self.properties_to_condition_on.items()
             }
         gen = self._generator_for(device)
-        if (self.size_buckets > 1 and not self.record_trajectories
+        if (self.size_buckets > 1 and fixed_types is None and not self.record_trajectories
                 and len(num_atoms) >= 2 * self.size_buckets):
             return self._launch_bucketed(model, num_atoms, conditions, gen)
         out = model.sample(
             gen, torch.as_tensor(num_atoms, device=device), max_atoms=self.max_atoms,
             conditions=conditions, guidance=float(self.diffusion_guidance_factor),
             fused_edge=self.fused_edge, record_traj=self.record_trajectories,
+            fixed_types=fixed_types,
         )
         if not self.record_trajectories:
             return out
@@ -257,7 +295,7 @@ class MatterGenSampler:
         self.last_num_atoms = final.num_atoms
         self.last_conditions = conditions
         self.last_guidance = float(self.diffusion_guidance_factor)
-        self.last_fixed_types = None
+        self.last_fixed_types = fixed_types
         return final
 
     def _launch_bucketed(

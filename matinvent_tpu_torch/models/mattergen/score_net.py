@@ -17,6 +17,7 @@ from torch import nn
 from matinvent_tpu_torch.models.cspnet import (
     LN_EPS,
     CSPLayer,
+    edge_mask_and_denom,
     layer_norm,
     linear,
     matmul3,
@@ -78,11 +79,13 @@ class MatterGenScoreNet(nn.Module):
         ln: bool = True,
         condition_fields: tuple = (),
         edge_style: str = "fc",
+        cutoff: float = 6.0,
+        max_neighbors: int = 20,
     ):
         super().__init__()
-        if edge_style != "fc":
-            # the knn edge style (ops/neighbors.py) is not ported yet
-            raise NotImplementedError(f"edge_style {edge_style!r}: only 'fc' is ported")
+        if edge_style not in ("fc", "knn"):
+            raise ValueError(f"unknown edge_style {edge_style}")
+        self.edge_style, self.cutoff, self.max_neighbors = edge_style, cutoff, max_neighbors
         H = hidden_dim
         self.hidden_dim = H
         self.num_layers = num_layers
@@ -112,8 +115,10 @@ class MatterGenScoreNet(nn.Module):
         dtype: torch.dtype = torch.float32,
     ) -> dict[str, torch.Tensor]:
         """``fused_edge`` sends each layer's edge branch through
-        ``ops.fused_edge.fused_edge_chain``; ``dtype`` is the activation
-        dtype (parameters stay f32)."""
+        ``ops.fused_edge.fused_edge_chain`` (fc edges only); ``dtype`` is the
+        activation dtype (parameters stay f32)."""
+        if fused_edge and self.edge_style != "fc":
+            raise ValueError("fused_edge requires the fc edge style (separable mask)")
         B, A = atom_types.shape
         node = self.type_embedding.weight.to(dtype)[atom_types.long()]
 
@@ -124,8 +129,10 @@ class MatterGenScoreNet(nn.Module):
             self.atom_latent_emb, torch.cat([node, lat_per_atom.to(node.dtype)], dim=-1), dtype
         )
 
-        edge_mask = mask[:, :, None] & mask[:, None, :]
-        denom = num_atoms.to(torch.float32)[:, None].expand(B, A)
+        edge_mask, denom = edge_mask_and_denom(
+            self.edge_style, frac_coords, lattice, num_atoms, mask,
+            self.cutoff, self.max_neighbors,
+        )
         if fused_edge:
             # the kernel recomputes frac_diff and the Fourier embedding
             frac_diff = dist_emb = None

@@ -34,8 +34,8 @@ from matinvent_tpu_torch.models.suite.torch_import import (
     load_torch_checkpoint,
 )
 from matinvent_tpu_torch.parallel.train import FinetuneStep
-from matinvent_tpu_torch.rewards.calculators.predictor import leaf_shapes, restore
 from matinvent_tpu_torch.utils import msgpack
+from matinvent_tpu_torch.utils.msgpack import leaf_shapes, restore
 from matinvent_tpu_torch.utils.config import write_flat_yaml
 from matinvent_tpu_torch.utils.scaler import StandardScaler
 

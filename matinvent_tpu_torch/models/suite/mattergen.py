@@ -1,17 +1,19 @@
 """MatterGen model suite (``matinvent_tpu/models/suite/mattergen.py``).
 
 A checkpoint directory holds ``config.yaml`` (one ``key: value`` line per
-``MatterGenConfig`` field) and ``state_dict.npz`` (torch-layout weights
-under ``decoder.``). The port builds ``MatterGenDiffusion`` from the first
-and loads the second with ``load_state_dict(strict=True)``; ``save_model``
-writes both and ``params.msgpack``, the flax tree of the JAX package's
-``MatterGenDiffusion`` in flax's serialization (``utils/msgpack.py``), which
-is what the JAX suite loads.
+``MatterGenConfig`` field) and the weights. The port builds
+``MatterGenDiffusion`` from the first and reads the weights as the JAX
+suite does: ``params.msgpack`` (the flax tree of the JAX package's
+``MatterGenDiffusion`` in flax's serialization, ``utils/msgpack.py``)
+first, then a torch ``*.ckpt`` (the first whose name holds ``last``, else
+the last by name) through ``mattergen_import``, which refuses GemNet
+checkpoints, and only then the port's own ``state_dict.npz`` (torch-layout
+weights under ``decoder.``). ``save_model`` writes ``params.msgpack``,
+``state_dict.npz`` and ``config.yaml``, which the JAX suite loads.
 
 ``params_from_jax`` turns the JAX package's flax parameter tree (as numpy)
-into the same state dict, by the naming rules of
-``matinvent_tpu/models/suite/mattergen_import.py:19-26``, and
-``params_to_jax`` turns it back.
+into the port's state dict, by the naming rules of ``mattergen_import``,
+and ``params_to_jax`` turns it back.
 """
 from __future__ import annotations
 
@@ -29,8 +31,14 @@ from matinvent_tpu_torch.models.mattergen.diffusion import (
 )
 from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
 from matinvent_tpu_torch.models.suite.base import ModelSuite
+from matinvent_tpu_torch.models.suite.mattergen_import import (
+    leaf_name_and_transpose,
+    mattergen_params_from_state_dict,
+)
+from matinvent_tpu_torch.models.suite.torch_import import load_torch_checkpoint
 from matinvent_tpu_torch.parallel.train import FinetuneStep
 from matinvent_tpu_torch.utils import msgpack
+from matinvent_tpu_torch.utils.msgpack import restore
 from matinvent_tpu_torch.utils.config import read_flat_yaml, write_flat_yaml
 
 # condition fields per pretrained variant
@@ -53,22 +61,6 @@ AVA_MODEL_NAMES = {
 _FLAT_LEAVES = ("edge_mlp_0",)
 
 
-def _torch_name(path: tuple[str, ...]) -> tuple[str, bool]:
-    """(torch name, transpose?) of one flax leaf path."""
-    *parents, last = path
-    if last == "kernel":
-        return ".".join([*parents, "weight"]), True
-    if last in ("scale", "embedding"):
-        return ".".join([*parents, "weight"]), False
-    if last == "bias":
-        return ".".join([*parents, "bias"]), False
-    if last.endswith("_kernel"):
-        return ".".join([*parents, last[: -len("_kernel")], "weight"]), True
-    if last.endswith("_bias"):
-        return ".".join([*parents, last[: -len("_bias")], "bias"]), False
-    return ".".join([*parents, last]), False
-
-
 def params_from_jax(params: Mapping[str, Any], prefix: str = "decoder.") -> dict[str, np.ndarray]:
     """Flax params (nested dicts of arrays, optionally under ``'params'``)
     -> a torch-layout state dict of float32 numpy arrays:
@@ -84,7 +76,7 @@ def params_from_jax(params: Mapping[str, Any], prefix: str = "decoder.") -> dict
             if isinstance(v, Mapping):
                 walk(v, (*path, k))
                 continue
-            name, transpose = _torch_name((*path, k))
+            name, transpose = leaf_name_and_transpose((*path, k))
             arr = np.asarray(v, dtype=np.float32)
             out[prefix + name] = np.ascontiguousarray(arr.T if transpose else arr)
 
@@ -145,10 +137,37 @@ def load_model(
     """``MatterGenDiffusion`` with the checkpoint's weights, on ``device``
     (the card unless ``"cpu"`` is asked for)."""
     model = MatterGenDiffusion(load_config(model_path, config_overrides), device=device)
-    with np.load(Path(model_path) / "state_dict.npz") as npz:
-        sd = {k: torch.from_numpy(npz[k]) for k in npz.files}
-    model.load_state_dict(sd, strict=True)
+    load_weights(model, model_path)
     return model.eval()
+
+
+def load_weights(model: MatterGenDiffusion, model_path: str | Path) -> None:
+    """Load a checkpoint directory's weights into ``model``, in the JAX
+    suite's order: ``params.msgpack``, then a ``*.ckpt`` (the first by name
+    holding ``last``, else the last), then ``state_dict.npz``."""
+    path = Path(model_path)
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    ckpts = sorted(path.glob("*.ckpt"))
+    if (path / "params.msgpack").exists():
+        with open(path / "params.msgpack", "rb") as fh:
+            params = restore(params_to_jax(sd, model), msgpack.unpackb(fh.read()))
+        weights = params_from_jax(params)
+    elif ckpts:
+        ckpt = next((c for c in ckpts if "last" in c.name), ckpts[-1])
+        params = mattergen_params_from_state_dict(
+            load_torch_checkpoint(str(ckpt)), params_to_jax(sd, model)
+        )
+        weights = params_from_jax(params)
+    elif (path / "state_dict.npz").exists():
+        with np.load(path / "state_dict.npz") as npz:
+            weights = {k: npz[k] for k in npz.files}
+    else:
+        raise FileNotFoundError(
+            f"no params.msgpack or *.ckpt under {model_path} — "
+            "convert checkpoints with tools/convert_mattergen_ckpt.py"
+        )
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in weights.items()},
+                          strict=True)
 
 
 def save_model(model: MatterGenDiffusion, save_dir: str | Path) -> None:
@@ -201,15 +220,11 @@ class MatterGenSuite(ModelSuite):
                 torch.manual_seed(self.seed)
                 return MatterGenDiffusion(self.model_config, device=self.device).eval()
         model = MatterGenDiffusion(self.model_config, device=self.device)
-        with np.load(Path(self.model_path) / "state_dict.npz") as npz:
-            sd = {k: torch.from_numpy(npz[k]) for k in npz.files}
-        model.load_state_dict(sd, strict=True)
+        load_weights(model, self.model_path)
         return model.eval()
 
     def get_sampler(self) -> MatterGenSampler:
         s = self.sample_cfg
-        if s.get("target_compositions_dict"):
-            raise NotImplementedError("sample_cfg 'target_compositions_dict' is not ported")
         return MatterGenSampler(
             batch_size=s.get("batch_size"),
             num_batches=s.get("num_batches"),
@@ -218,6 +233,7 @@ class MatterGenSuite(ModelSuite):
             max_atoms=s.get("max_atoms", 20),
             diffusion_guidance_factor=s.get("diffusion_guidance_factor", 0.0),
             properties_to_condition_on=s.get("properties_to_condition_on"),
+            target_compositions_dict=s.get("target_compositions_dict"),
             niggli_reduction=s.get("niggli_reduction", False),
             record_trajectories=bool(s.get("record_trajectories", False)),
             seed=self.seed,

@@ -3,8 +3,10 @@
 ``invalid_filter`` (structural, charge-balance and cell-size checks),
 ``OptFilter`` (novelty, uniqueness and stability masks, AND-ed over the
 chosen metrics, the ``synthesizable`` screen of the SynScore ensemble
-among them) and ``OptEval`` (the metrics only). MLIP relaxation
-(``relaxer``) is not ported and raises ``NotImplementedError``;
+among them) and ``OptEval`` (the metrics only). With ``relax`` and a
+``relaxer`` (a callable ``structures -> (relaxed, energies)``, such as
+``chem.relax.SoftSphereRelaxer``) both relax the structures first when no
+energies are given, and the stability screen reads the relaxer's energies;
 ``relax=True`` without a relaxer relaxes nothing, as in the JAX package.
 """
 from __future__ import annotations
@@ -107,8 +109,8 @@ class OptFilter:
 
     Args:
         metrics: subset of ``METRIC_LIST`` to AND together.
-        relax: accepted as the JAX package takes it; with no ``relaxer`` it
-            does nothing.
+        relax: whether to run ``relaxer`` before the metrics.
+        relaxer: callable ``(structures) -> (relaxed_structures, energies)``.
         reference: ``ReferenceDataset`` for novelty and stability.
         stability_fn: ``(structures, energies, reference) -> mask``; by
             default energy above the reference hull <= ``ehull_threshold``.
@@ -135,9 +137,9 @@ class OptFilter:
     ) -> None:
         if not all(m in METRIC_LIST for m in metrics):
             raise ValueError(f"metrics must be in {METRIC_LIST}, got {metrics}")
-        if relaxer is not None:
-            raise NotImplementedError("MLIP relaxation (relaxer) is not ported")
         self.metrics = metrics
+        self.relax = relax
+        self.relaxer = relaxer
         self.reference = reference or ReferenceDataset()
         self.stability_fn = stability_fn
         self.matcher = MATCHER_TIERS[structure_matcher]()
@@ -170,6 +172,13 @@ class OptFilter:
             [x for x, m in zip(structures, mask) if m],
             None if energies is None else [e for e, m in zip(energies, mask) if m],
         )
+
+    def _relaxed(self, structures: List[Structure], energies: List[float] | None):
+        """(structures, energies), relaxed by ``relaxer`` when ``relax`` is
+        set and no energies were given."""
+        if self.relax and self.relaxer is not None and energies is None:
+            return self.relaxer(structures)
+        return structures, energies
 
     def compute_metrics(
         self, structures: List[Structure], energies: List[float] | None
@@ -221,6 +230,7 @@ class OptFilter:
         data_list, structures, energies = self.pre_filter_elements(
             data_list, structures, energies
         )
+        structures, energies = self._relaxed(structures, energies)
         masks, metrics = self.compute_metrics(structures, energies)
         if not masks:
             return [], [], {}
@@ -245,6 +255,7 @@ class OptEval(OptFilter):
     def __call__(self, structures: List[Structure], energies: List[float] | None = None):
         """(metrics, the structures they were computed on)."""
         _, structures, energies = self.pre_filter_elements(structures, structures, energies)
+        structures, energies = self._relaxed(structures, energies)
         _, metrics = self.compute_metrics(structures, energies)
         return metrics, structures
 
@@ -252,7 +263,9 @@ class OptEval(OptFilter):
 def build_filter(cfg: dict | None, device=None, syn_root_dir: str | None = None) -> OptFilter | None:
     """An ``OptFilter`` from the port's plain-dict config: its keyword
     arguments, with ``reference`` given as ``ReferenceDataset.from_files``
-    paths (``structures_path``, ``energies_path``); ``None`` for no filter.
+    paths (``structures_path``, ``energies_path``) and ``relaxer`` as a
+    relaxer object (``pipeline.mat_invent.build_relaxer`` makes one from its
+    config); ``None`` for no filter.
     ``device`` and ``syn_root_dir`` (where its scores are written) are the
     default synthesizability screen's."""
     if not cfg:

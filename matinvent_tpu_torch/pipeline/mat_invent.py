@@ -21,9 +21,12 @@ on the last), ``profile_dir`` writes a ``torch.profiler`` Chrome trace of
 the first ``profile_steps`` iterations, and ``async_sampling`` samples
 iteration t+1 with the pre-fine-tune-t weights while the host filters and
 scores iteration t (not with ``ddpo``, which raises ``ValueError``: DDPO
-needs the current iteration's trajectory). MLIP relaxation
-(``sample_cfg.mlip_opt``), CSP mode (``target_compositions_dict``) and the
-calculators that are not ported (ALIGNN, DFT, MLIP) raise
+needs the current iteration's trajectory). ``sample_cfg.mlip_opt`` relaxes
+the valid samples (and rewrites their extxyz) before the filter, which then
+reads the relaxer's energies; it and the filter's ``relaxer`` are named as
+``{"class": "SoftSphereRelaxer", ...keyword arguments}`` (``RELAXERS``).
+The model section's ``sample_cfg.target_compositions_dict`` samples in CSP
+mode. The calculators that are not ported (ALIGNN, DFT) raise
 ``NotImplementedError``.
 
     python -m matinvent_tpu_torch.pipeline.mat_invent --recipe rl_hhi_rich5 \\
@@ -52,6 +55,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from matinvent_tpu_torch.chem.relax import SoftSphereRelaxer
 from matinvent_tpu_torch.models.diffcsp import DiffCSPDiffusion
 from matinvent_tpu_torch.models.sample import batch_to_structures, collate_data_list
 from matinvent_tpu_torch.models.suite.base import ModelSuite
@@ -65,6 +69,7 @@ from matinvent_tpu_torch.pipeline.logger import CSVLogger, Logger, setup_logging
 from matinvent_tpu_torch.pipeline.save import save_structures
 from matinvent_tpu_torch.recipes import RECIPES, REPO_PATHS, REWARDS
 from matinvent_tpu_torch.rewards.calculators import Empirical, PropertyPredictor, SynScore
+from matinvent_tpu_torch.rewards.calculators.mlip import MLIPBridge
 from matinvent_tpu_torch.rewards.reward import Reward
 from matinvent_tpu_torch.utils.checkpoint import (
     load_run_state,
@@ -79,7 +84,11 @@ CALCULATORS = {
     "Empirical": (Empirical, False),
     "PropertyPredictor": (PropertyPredictor, True),
     "SynScore": (SynScore, True),
+    "MLIPBridge": (MLIPBridge, True),
 }
+# a relaxer config's ``class`` (``sample_cfg.mlip_opt``, the filter's
+# ``relaxer``); every relaxer runs on the model's device
+RELAXERS = {"SoftSphereRelaxer": SoftSphereRelaxer}
 # a model section's ``class`` (the last component of the JAX config's
 # ``_target_``; MatterGenSuite when absent)
 SUITES = {"MatterGenSuite": MatterGenSuite, "DiffCSPSuite": DiffCSPSuite}
@@ -119,10 +128,13 @@ class MatInvent(ReinL):
             save_freq=save_freq, logger=logger, replay=replay, replay_args=replay_args,
             seed=seed,
         )
-        if self.sample_cfg.get("mlip_opt"):
-            raise NotImplementedError("sample_cfg 'mlip_opt' (MLIP relaxation) is not ported")
+        self.mlip_opt = build_relaxer(self.sample_cfg.get("mlip_opt"), model_suite.device)
+        filter_cfg = self.sample_cfg.get("filter")
+        if isinstance(filter_cfg, dict) and filter_cfg.get("relaxer") is not None:
+            filter_cfg = {**filter_cfg,
+                          "relaxer": build_relaxer(filter_cfg["relaxer"], model_suite.device)}
         self.filter = build_filter(
-            self.sample_cfg.get("filter"), device=model_suite.device,
+            filter_cfg, device=model_suite.device,
             syn_root_dir=os.path.join(save_dir, "rewards", "syn_filter"),
         )
         if not 0.0 < topk_ratio <= 1.0:
@@ -237,10 +249,15 @@ class MatInvent(ReinL):
         if self.sample_cfg.get("invalid_filter", True):
             sample_data, sample_struc = invalid_filter(sample_data, sample_struc)
         logging.info(f"Number of valid samples: {len(sample_struc)}")
-        save_structures(sample_struc, self.sample_dir, f"step_{self.step:0>4d}_valid.extxyz")
+        valid_xyz_path = save_structures(
+            sample_struc, self.sample_dir, f"step_{self.step:0>4d}_valid.extxyz"
+        )
+        energies = None
+        if self.mlip_opt is not None:
+            sample_struc, energies = self.mlip_opt(sample_struc, valid_xyz_path)
         metrics = {}
         if self.filter is not None:
-            sample_data, sample_struc, metrics = self.filter(sample_data, sample_struc, None)
+            sample_data, sample_struc, metrics = self.filter(sample_data, sample_struc, energies)
             logging.info(f"Number of filtered samples: {len(sample_struc)}")
         if metrics:
             logging.info(", ".join(f"{k}: {v:.6f}" for k, v in metrics.items()))
@@ -438,6 +455,18 @@ def _parse_value(text: str):
         return json.loads(text)
     except json.JSONDecodeError:
         return text
+
+
+def build_relaxer(cfg, device=None):
+    """The relaxer of a config ``{"class": name, ...keyword arguments}`` on
+    ``device``; ``None`` for none."""
+    if not cfg:
+        return None
+    if not isinstance(cfg, dict) or cfg.get("class") not in RELAXERS:
+        raise ValueError(f"a relaxer config names one of {sorted(RELAXERS)} under 'class', "
+                         f"got {cfg!r}")
+    kwargs = dict(cfg)
+    return RELAXERS[kwargs.pop("class")](**kwargs, device=device)
 
 
 def build_calculator(cfg: dict, out_dir: Path, device=None):

@@ -26,10 +26,21 @@ checkpoint (lr 3e-6, one PPO epoch) and on
 A model section names its suite under ``class`` (the last component of the
 YAML's ``_target_``; ``MatterGenSuite`` when absent).
 
+``rl_heat_capacity_t1000`` holds the values of the archived JAX run
+``experiments/results/rl_heat_capacity_t1000/hparams.yaml``: 128 samples of
+at most 8 atoms from ``pretrained_mattergen_t1000`` (``matinvent_corpus``
+histogram, ``sample_clip`` 30), the reward-weighted fine-tune (lr 6e-4,
+``sigma`` 0.02, replay of 16), rewarded by the heat capacity of the
+``MLIPBridge`` phonon worker. ``rl_cond_ddpo`` holds those of
+``experiments/results/rl_cond_ddpo/hparams.yaml``: DDPO of the conditional
+checkpoint ``pretrained_conditional_v2`` (density 4.18, guidance 0.5, 64
+samples of at most 8 atoms, lr 3e-5, two PPO epochs), rewarded by the
+density.
+
 ``REWARDS`` holds the reward sections of ``configs/reward/*.yaml`` whose
 calculators the port runs (the entry point's ``--reward NAME``, Hydra's
-``reward=NAME``): the empirical ones, the GNN property predictors and
-SynScore. A calculator's class is the last component of the YAML's
+``reward=NAME``): the empirical ones, the GNN property predictors,
+SynScore and the MLIP bridge's heat capacity. A calculator's class is the last component of the YAML's
 ``_target_``, under the calculator's ``class`` key; without that key it is
 ``Empirical``. ``BASE_FILTER`` is the sample filter of
 ``configs/base.yaml`` (``OptFilter`` arguments), which the recipe variant
@@ -97,6 +108,8 @@ REWARDS = {
     "syn_score": _section(_prop("syn_score", "SynScore", "ascending", 0.5, 1.0)),
     "vickers_hardness": _section(_prop("vickers_hardness", _PP, "ascending", 5.0, 40.0)),
     "young_modulus": _section(_prop("young_modulus", _PP, "ascending", 80.0, 480.0)),
+    "heat_capacity": _section(
+        _prop("heat_capacity", "MLIPBridge", "ascending", 0.25, 2.0, env_name=None, worker=5)),
 }
 
 BASE_FILTER = {
@@ -249,3 +262,38 @@ RECIPES["diffcsp_hhi"] = {
     "reward": copy.deepcopy(REWARDS["hhi"]),
     "logger": {"save_dir": "./"},
 }
+
+_HEAT = _ddpo("rl_heat_capacity_t1000", 120, {
+    "model_name": "mattergen_base",
+    "seed": 0,
+    "model_cfg": {"hidden_dim": 256, "num_layers": 6, "time_dim": 256, "timesteps": 1000},
+    "sample_cfg": {"batch_size": 128, "num_batches": 1,
+                   "num_atoms_distribution": "matinvent_corpus", "max_atoms": 8,
+                   "diffusion_guidance_factor": 0.0},
+    "finetune_cfg": {"batch_size": 16, "timesteps": 1000, "lr": 0.0006},
+    "model_path": "experiments/results/pretrained_mattergen_t1000",
+    "config_overrides": {"sample_clip": 30.0},
+})
+_HEAT["pipeline"].pop("finetune_mode")
+_HEAT["pipeline"]["replay_args"]["sample_size"] = 16
+_HEAT["pipeline"]["finetune_cfg"].update(accum_steps=50, sigma=0.02)
+_HEAT["reward"] = copy.deepcopy(REWARDS["heat_capacity"])
+RECIPES["rl_heat_capacity_t1000"] = _HEAT
+
+_COND_SAMPLE = {**_SAMPLE, "invalid_filter": True}
+_COND = _ddpo("rl_cond_ddpo", 40, {
+    "model_name": "mattergen_base",
+    "seed": 0,
+    "model_cfg": {"hidden_dim": 256, "num_layers": 6, "time_dim": 256, "timesteps": 1000},
+    "sample_cfg": {"batch_size": 64, "num_batches": 1,
+                   "num_atoms_distribution": "matinvent_corpus", "max_atoms": 8,
+                   "diffusion_guidance_factor": 0.5,
+                   "properties_to_condition_on": {"density": 4.18}},
+    "finetune_cfg": {"batch_size": 16, "timesteps": 1000, "lr": 3e-05, "ddpo_epochs": 2},
+    "model_path": "experiments/results/pretrained_conditional_v2",
+})
+_COND["sample_cfg"] = dict(_COND_SAMPLE)
+_COND["pipeline"]["sample_cfg"] = dict(_COND_SAMPLE)
+_COND["pipeline"]["finetune_cfg"]["sigma"] = 0.025
+_COND["reward"] = _section(_prop("density", _EMP, 4.18, 0.0, 4.18), threshold=0.875)
+RECIPES["rl_cond_ddpo"] = _COND

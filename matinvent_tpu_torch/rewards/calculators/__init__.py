@@ -1,7 +1,8 @@
 """Property calculators of the port: the empirical ones (host), the GNN
-property predictors and the SynScore ensemble (on the calculator's device).
-The DFT, MLIP and ALIGNN calculators of the JAX package are not ported, and
-nothing here imports them."""
+property predictors and the SynScore ensemble (on the calculator's device);
+the MLIP bridge is ``rewards.calculators.mlip``. The DFT and ALIGNN
+calculators of the JAX package are not ported, and nothing here imports
+them."""
 from matinvent_tpu_torch.rewards.calculators.base import Calculator
 from matinvent_tpu_torch.rewards.calculators.empirical import Empirical
 from matinvent_tpu_torch.rewards.calculators.predictor import PropertyPredictor

@@ -24,7 +24,7 @@ from __future__ import annotations
 import logging
 import os
 from pathlib import Path
-from typing import Any, List, Mapping, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +34,7 @@ from matinvent_tpu_torch.device import resolve_device
 from matinvent_tpu_torch.models.batch import CrystalBatch
 from matinvent_tpu_torch.models.cspnet import CSPNet
 from matinvent_tpu_torch.models.suite.mattergen import params_from_jax, params_to_jax
+from matinvent_tpu_torch.utils.msgpack import leaf_shapes, restore
 from matinvent_tpu_torch.rewards.calculators.base import Calculator
 from matinvent_tpu_torch.utils import msgpack
 
@@ -53,27 +54,6 @@ TASK_MODEL_DICT = {
     "pugh_ratio": "",
     "young_modulus": "",
 }
-
-
-def restore(template: Any, state: Any) -> Any:
-    """``state`` shaped by ``template`` as ``flax.serialization.from_bytes``
-    restores it: every key of a template dict must be in the state (extra
-    keys are dropped), else ``ValueError``; leaves come from the state."""
-    if not isinstance(template, Mapping):
-        return state
-    if not isinstance(state, Mapping):
-        raise ValueError(f"expected a dict of keys {sorted(template)}, got {type(state).__name__}")
-    missing = set(map(str, template)) - set(state)
-    if missing:
-        raise ValueError(f"the checkpoint lacks the keys {sorted(missing)}")
-    return {k: restore(v, state[str(k)]) for k, v in template.items()}
-
-
-def leaf_shapes(tree: Any) -> Any:
-    """The tree of leaf shapes of a nested dict of arrays."""
-    if isinstance(tree, Mapping):
-        return {k: leaf_shapes(v) for k, v in tree.items()}
-    return tuple(np.shape(tree))
 
 
 def predictor_net(hidden_dim: int = 128, num_layers: int = 4) -> CSPNet:

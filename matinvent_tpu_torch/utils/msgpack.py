@@ -11,12 +11,13 @@ flax's ``msgpack_restore`` does: maps, strings, binary data, arrays, ints,
 floats, bools and nil, with the array and numpy-scalar extension types
 turned into numpy values. flax splits arrays of more than 2**30 bytes into
 chunks; no checkpoint of the port comes near that, and such an array raises
-here, both ways.
+here, both ways. ``restore`` shapes a decoded tree by a template, as
+``flax.serialization.from_bytes`` does.
 """
 from __future__ import annotations
 
 import struct
-from typing import Any
+from typing import Any, Mapping
 
 import numpy as np
 
@@ -224,3 +225,24 @@ def unpackb(data: bytes) -> Any:
     if reader.pos != len(reader.data):
         raise ValueError(f"{len(reader.data) - reader.pos} trailing bytes after the msgpack object")
     return out
+
+
+def restore(template: Any, state: Any) -> Any:
+    """``state`` shaped by ``template`` as ``flax.serialization.from_bytes``
+    restores it: every key of a template dict must be in the state (extra
+    keys are dropped), else ``ValueError``; leaves come from the state."""
+    if not isinstance(template, Mapping):
+        return state
+    if not isinstance(state, Mapping):
+        raise ValueError(f"expected a dict of keys {sorted(template)}, got {type(state).__name__}")
+    missing = set(map(str, template)) - set(state)
+    if missing:
+        raise ValueError(f"the checkpoint lacks the keys {sorted(missing)}")
+    return {k: restore(v, state[str(k)]) for k, v in template.items()}
+
+
+def leaf_shapes(tree: Any) -> Any:
+    """The tree of leaf shapes of a nested dict of arrays."""
+    if isinstance(tree, Mapping):
+        return {k: leaf_shapes(v) for k, v in tree.items()}
+    return tuple(np.shape(tree))

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from matinvent_tpu_torch.experiments import fused_edge_ab, fused_edge_flat
+from matinvent_tpu_torch.experiments.phonon_check import phonon_pair, rocksalt
 from matinvent_tpu_torch.models.mattergen.diffusion import (
     MatterGenConfig,
     MatterGenDiffusion,
@@ -426,3 +427,76 @@ def test_predictor_trainer_step_on_card_matches_cpu(counts):
         assert (g_card[k] - g).abs().max().item() <= 1e-4 * scale, k
         clear = g.abs() > 1e-3 * scale
         assert (p_card[k] - p_cpu[k])[clear].abs().max().item() <= 1e-6, k
+
+
+# ---------------------------------------- relaxation, phonons, knn edges
+
+
+@pytest.fixture
+def tf32_on():
+    """These paths must not depend on a TF32 setting: run them with TF32
+    allowed (the pipeline's default), restored afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def test_relaxer_on_card_matches_cpu(tf32_on):
+    """Coords within 1e-4 (circular) and energies within 1e-4 relative:
+    every case after 1 step (the descent is unstable on most corpus
+    structures: from the second step the card's and the CPU's rounding part
+    them), the stable symmetric cells at 200."""
+    from pathlib import Path
+
+    from matinvent_tpu_torch.chem.relax import SoftSphereRelaxer
+    from matinvent_tpu_torch.chem.structure import read_extxyz
+
+    root = Path(__file__).resolve().parents[1]
+    corpus = read_extxyz(str(root / "experiments/data/corpus_r5.extxyz"), limit=16)
+    sym = [rocksalt(4.0, 3, 9), rocksalt(5.9, 82, 16), rocksalt(5.0, 55, 53)]
+    for structs, steps in ((corpus + sym, 1), (sym, 200)):
+        card, e = SoftSphereRelaxer(steps=steps, max_atoms=20, device="cuda")(structs)
+        cpu, e_ref = SoftSphereRelaxer(steps=steps, max_atoms=20, device="cpu")(structs)
+        np.testing.assert_allclose(e, e_ref, rtol=1e-4, atol=0)
+        for a, b in zip(card, cpu):
+            assert np.abs((a.frac_coords - b.frac_coords + 0.5) % 1.0 - 0.5).max() < 1e-4
+            np.testing.assert_allclose(a.lattice, b.lattice, rtol=0, atol=1e-4)
+
+
+def test_hessian_and_heat_capacity_on_card_match_cpu(tf32_on):
+    """The Hessian of a 64-atom supercell within 1e-4 of its largest entry,
+    and C_v / the bulk modulus of LiF and PbS within 1e-3."""
+    from matinvent_tpu_torch.chem import phonon
+
+    sc = phonon.supercell(rocksalt(3.8, 11, 17), (2, 4, 4))
+    assert sc.num_atoms == 64
+    h = phonon.pair_hessian(sc, torch.device("cuda")).cpu().numpy()
+    ref = phonon.pair_hessian(sc, torch.device("cpu")).numpy()
+    np.testing.assert_allclose(h, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
+    # C_v once the near-zero acoustic modes each side counts above the
+    # 1e10 rad/s floor are accounted for; the bulk modulus where both scale
+    # searches end alike
+    for s in (rocksalt(4.0, 3, 9), rocksalt(5.9, 82, 16)):
+        p = phonon_pair(s, True, 160)
+        assert p["cv_gap"] <= 1e-3, p
+        assert p["bm_gap"] is None or p["bm_gap"] <= 1e-3, p
+
+
+def test_knn_mask_on_card_matches_cpu(tf32_on):
+    from matinvent_tpu_torch.ops.neighbors import min_image_distances, radius_knn_mask
+
+    rng = np.random.default_rng(0)
+    B, A = 16, 20
+    na = rng.integers(1, A + 1, B)
+    mask = torch.from_numpy(np.arange(A)[None, :] < na[:, None])
+    frac = torch.from_numpy(rng.uniform(size=(B, A, 3)).astype(np.float32))
+    lat = torch.from_numpy((np.eye(3)[None] * rng.uniform(3, 8, (B, 1, 1))
+                            + rng.normal(size=(B, 3, 3)) * 0.4).astype(np.float32))
+    d = min_image_distances(frac.cuda(), lat.cuda()).cpu()
+    torch.testing.assert_close(d, min_image_distances(frac, lat), rtol=1e-6, atol=0)
+    for cutoff, k in ((6.0, 20), (4.0, 5)):
+        card = radius_knn_mask(frac.cuda(), lat.cuda(), mask.cuda(), cutoff, k).cpu()
+        assert torch.equal(card, radius_knn_mask(frac, lat, mask, cutoff, k))

@@ -457,12 +457,16 @@ def test_entry_point_runs_one_tiny_iteration_in_each_new_mode(tmp_path, recipe):
 
 
 def test_refusals_left(tmp_path):
-    """CSP mode is not ported; DDPO cannot overlap sampling with scoring."""
+    """CSP mode is ported and DDPO records its fixed types; DDPO cannot
+    overlap sampling with scoring."""
     base = [a for a in TINY if a != "--set"]
     cfg = mat_invent.resolve("rl_hhi_ddpo_mattergen_t1000", 1,
                              base + ['model.sample_cfg.target_compositions_dict=[{"Fe": 2}]'])
-    with pytest.raises(NotImplementedError, match="target_compositions_dict"):
-        mat_invent.build(cfg, str(tmp_path), device="cpu")
+    pipe = mat_invent.build(cfg, str(tmp_path / "csp"), device="cpu")
+    assert pipe.sampler.target_compositions_dict == [{"Fe": 2}]
+    pipe.run_rl()
+    assert (pipe.sampler.last_fixed_types[:, :2] == 26).all()
+    assert (pipe.sampler.last_fixed_types[:, 2:] == 0).all()
     for recipe in ("rl_hhi_ddpo", "rl_hhi_ddpo_mattergen_t1000"):
         cfg = mat_invent.resolve(recipe, 1, base + ["pipeline.async_sampling=true"])
         with pytest.raises(ValueError, match="async_sampling"):
@@ -485,3 +489,37 @@ def test_recipes_are_the_archived_jax_runs():
         assert cfg["reward"]["prop_cfg"][0]["minv"] == ref["reward"]["prop_cfg"][0]["minv"]
         assert os.path.isdir(mat_invent.resolve(name)["model"]["model_path"])
     assert os.path.isdir(mat_invent.resolve("diffcsp_hhi")["model"]["model_path"])
+
+
+def _holds_yaml(name: str) -> dict:
+    import yaml
+
+    ref = yaml.safe_load(open(os.path.join(ROOT, "experiments/results", name, "hparams.yaml")))
+    cfg = mat_invent.RECIPES[name]
+    for key in ("seed", "rl_epoch", "sample_cfg", "eval_size"):
+        assert cfg[key] == ref[key], (name, key)
+    for sec in ("pipeline", "model"):
+        for k, v in ref[sec].items():
+            if k in ("_target_", "model_path"):
+                continue
+            assert cfg[sec][k] == v, (name, sec, k)
+    r, rr = cfg["reward"], ref["reward"]
+    assert r["reward_threshold"] == rr["reward_threshold"] and r["root_dir"] == rr["root_dir"]
+    for p, rp in zip(r["prop_cfg"], rr["prop_cfg"], strict=True):
+        calc = dict(rp["calculator"])
+        cls = calc.pop("_target_").rsplit(".", 1)[-1]
+        assert p["calculator"].get("class", "Empirical") == cls
+        assert {k: v for k, v in p["calculator"].items() if k != "class"} == calc
+        assert {k: p[k] for k in ("name", "target", "minv", "maxv")} == {
+            k: rp[k] for k in ("name", "target", "minv", "maxv")}
+    resolved = mat_invent.resolve(name)
+    assert os.path.isdir(resolved["model"]["model_path"])
+    assert os.path.basename(resolved["model"]["model_path"]) == os.path.basename(
+        ref["model"]["model_path"])
+    return cfg
+
+
+def test_rl_cond_ddpo_recipe_is_the_archived_jax_run():
+    cfg = _holds_yaml("rl_cond_ddpo")
+    assert cfg["pipeline"]["finetune_mode"] == "ddpo"
+    assert cfg["model"]["sample_cfg"]["properties_to_condition_on"] == {"density": 4.18}

@@ -491,3 +491,54 @@ def test_checkpoint_chain_at_T1000_on_jax_draws(pretrained):
     assert (out.atom_types.numpy() == np.asarray(ref.atom_types))[real].mean() >= 0.95
     np.testing.assert_allclose(traj["log_prob_x"].numpy()[:-1], np.asarray(jtraj["log_prob_x"])[:-1],
                                rtol=0, atol=1e-3)
+
+
+# ------------------------------------- the verify_smoke DiffCSP checkpoint
+
+VERIFY = os.path.join(ROOT, "exp_res", "verify_smoke", "models", "final")
+
+
+@pytest.mark.parametrize("T", [None, 8])
+def test_verify_smoke_checkpoint_matches_jax(T):
+    """``exp_res/verify_smoke/models/final`` (DiffCSP h128/L4, ``time_dim``
+    256, cosine, T=1000) loads to JAX's weights; its f32 ``apply_net``
+    within 2e-4 of each output's scale and, at T=8, a sample on JAX's draws
+    within 1e-4 (coords circularly), types equal."""
+    # sample_clip 30 as the DDPO recipes sample: at T=8 an unclipped cell
+    # of this checkpoint overflows in both packages
+    over = None if T is None else {"timesteps": T, "sample_clip": 30.0}
+    jd, jparams = JaxSuite(model_path=VERIFY, config_overrides=over).load_model()
+    model = DiffCSPSuite(model_path=VERIFY, config_overrides=over, device="cpu").load_model()
+    assert (model.config.hidden_dim, model.config.num_layers, model.config.time_dim) == (128, 4, 256)
+    assert model.config.scheduler_mode == "cosine"
+    ref_sd = params_from_jax(jax.tree.map(np.asarray, jparams))
+    for k, v in model.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), ref_sd[k], k)
+    if T is None:
+        rng = np.random.default_rng(8)
+        B, Am, K = 4, 8, 100
+        na = np.array([8, 2, 5, 1], np.int32)
+        mask = np.arange(Am)[None, :] < na[:, None]
+        from matinvent_tpu.models.diffcsp import sinusoidal_time_embedding as jemb
+
+        temb = np.asarray(jemb(jnp.asarray(np.array([1, 300, 700, 1000])), jd.config.time_dim))
+        probs = rng.normal(size=(B, Am, K)).astype(np.float32)
+        frac = rng.uniform(size=(B, Am, 3)).astype(np.float32)
+        lat = (np.eye(3)[None] * 5.0 + rng.normal(size=(B, 3, 3))).astype(np.float32)
+        ref = jd.apply_net(jparams, JaxNoised(*(jnp.asarray(a) for a in (temb, probs, frac, lat))),
+                           jnp.asarray(na), jnp.asarray(mask))
+        got = model.apply_net(NoisedInput(*(torch.from_numpy(a) for a in (temb, probs, frac, lat))),
+                              torch.from_numpy(na), torch.from_numpy(mask))
+        for g, r in zip(got, ref):
+            r = np.asarray(r)
+            m = mask[..., None] if r.ndim == 3 and r.shape[1] == Am else np.ones(1, bool)
+            err = np.abs(g.detach().numpy() - r) * m
+            assert err.max() <= 2e-4 * max(1.0, np.abs(r).max()), err.max()
+        return
+    key = jax.random.PRNGKey(9)
+    ref, _ = jd.sample(jparams, key, jnp.asarray(NA), max_atoms=A, step_lr=1e-5)
+    noise = _jax_sample_draws(key, len(NA), A, 100, T)
+    out, _ = model.sample(noise, torch.from_numpy(NA), max_atoms=A, step_lr=1e-5)
+    np.testing.assert_allclose(out.lattice.numpy(), np.asarray(ref.lattice), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(_circ(out.frac_coords.numpy(), ref.frac_coords), 0.0, atol=1e-4)
+    np.testing.assert_array_equal(out.atom_types.numpy(), np.asarray(ref.atom_types))

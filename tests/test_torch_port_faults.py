@@ -255,3 +255,70 @@ def test_conditional_checkpoint_matches_jax():
         np.testing.assert_allclose(out[k], ref[k], atol=2e-4, rtol=0, err_msg=k)
     # the condition reaches the outputs
     assert max(np.abs(out[k] - uncond[k]).max() for k in out) > 1e-3
+
+
+# ------------------------------------------- checkpoint load order (fault A)
+
+MG_T1000 = ROOT / "experiments/results/pretrained_mattergen_t1000"
+
+
+def _converted_copies(tmp_path):
+    """Copies of ``pretrained_mattergen_t1000`` holding only
+    ``params.msgpack`` + ``config.yaml`` (the layout of
+    ``tools/convert_mattergen_ckpt.py to_native``), only a ``last.ckpt``
+    written from its state dict, and only a GemNet-named state dict."""
+    import shutil
+
+    dirs = {name: tmp_path / name for name in ("msgpack", "ckpt", "gemnet")}
+    for d in dirs.values():
+        d.mkdir()
+        shutil.copy(MG_T1000 / "config.yaml", d / "config.yaml")
+    shutil.copy(MG_T1000 / "params.msgpack", dirs["msgpack"] / "params.msgpack")
+    with np.load(MG_T1000 / "state_dict.npz") as npz:
+        sd = {k: torch.from_numpy(npz[k]) for k in npz.files}
+    torch.save({"state_dict": sd, "config": {}}, dirs["ckpt"] / "last.ckpt")
+    gemnet = {"decoder.gemnet.int_blocks.0.weight": torch.zeros(2, 2)}
+    torch.save({"state_dict": gemnet}, dirs["gemnet"] / "last.ckpt")
+    return dirs
+
+
+@pytest.mark.parametrize("layout", ["msgpack", "ckpt"])
+def test_checkpoint_loads_as_jax_loads_it(tmp_path, layout):
+    """A directory without ``state_dict.npz`` loads in the port, through the
+    module-level ``load_model`` and the suite, to the weights of the
+    original and to JAX's f32 ``apply_net`` on the same directory (within
+    1e-6 of each output's scale)."""
+    from matinvent_tpu_torch.models.suite.mattergen import MatterGenSuite
+
+    path = _converted_copies(tmp_path)[layout]
+    assert not (path / "state_dict.npz").exists()
+    base = load_model(MG_T1000, device="cpu")
+    model = load_model(path, device="cpu")
+    suite_model = MatterGenSuite(model_path=str(path), device="cpu").load_model()
+    for k, v in base.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
+        assert torch.equal(suite_model.state_dict()[k], v), k
+    jd, params = JaxSuite(model_path=str(path)).load_model()
+    x = _noised_inputs(B=3, A=8, time_dim=model.config.time_dim, seed=1)
+    ref = _jax_net(jd, params, x)
+    out = _port_net(model, x)
+    for k in ref:
+        scale = max(1.0, float(np.abs(ref[k]).max()))
+        np.testing.assert_allclose(out[k], ref[k], atol=1e-6 * scale, rtol=0, err_msg=k)
+
+
+def test_gemnet_and_empty_checkpoints_raise_as_in_jax(tmp_path):
+    from matinvent_tpu_torch.models.suite.mattergen import MatterGenSuite
+
+    path = _converted_copies(tmp_path)["gemnet"]
+    with pytest.raises(ValueError, match="GemNet"):
+        JaxSuite(model_path=str(path)).load_model()
+    with pytest.raises(ValueError, match="GemNet"):
+        load_model(path, device="cpu")
+    with pytest.raises(ValueError, match="GemNet"):
+        MatterGenSuite(model_path=str(path), device="cpu").load_model()
+    (path / "last.ckpt").unlink()
+    with pytest.raises(FileNotFoundError, match="no params.msgpack or"):
+        JaxSuite(model_path=str(path)).load_model()
+    with pytest.raises(FileNotFoundError, match="no params.msgpack or"):
+        load_model(path, device="cpu")

@@ -316,8 +316,14 @@ def test_synthesizable_and_relaxer_raise(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             pfilters.OptFilter(metrics=["validity", "synthesizable"], relax=False)
-    with pytest.raises(NotImplementedError):
-        pfilters.OptFilter(metrics=["validity"], relaxer=lambda s: (s, None))
+    # the relaxer is ported (tests/test_torch_port_relax.py): the filter
+    # takes it and relaxes before its metrics
+    seen = []
+    relaxing = pfilters.OptFilter(metrics=["validity"], device="cpu",
+                                  relaxer=lambda s: (seen.extend(s) or s, None))
+    strucs = REFERENCE[:3]
+    relaxing(list(range(3)), strucs)
+    assert seen == strucs
     with pytest.raises(ValueError):
         pfilters.OptFilter(metrics=["novelty"])
     assert pfilters.build_filter(None) is None

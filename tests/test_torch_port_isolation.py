@@ -12,21 +12,33 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "matinvent_tpu_torch"
 ALLOWED = {"torch", "numpy", "scipy", "matinvent_tpu_torch"} | set(sys.stdlib_module_names)
 
 # a meta-path finder that refuses the modules the card machine lacks; the
-# exact top-level name, so matinvent_tpu_torch still imports
+# exact top-level name, so matinvent_tpu_torch still imports. Importing one
+# raises; a ``find_spec`` probe (torch.func's import of torch._dynamo
+# probes for pandas and others without importing them) finds a spec
 BLOCKER = textwrap.dedent(
     """
-    import sys
+    import importlib.abc, importlib.machinery, sys
     BLOCKED = {"jax", "jaxlib", "flax", "yaml", "pandas", "msgpack", "matinvent_tpu"}
+
+    class Refuse(importlib.abc.Loader):
+        def create_module(self, spec):
+            raise ImportError(f"blocked import: {spec.name}")
+
+        def exec_module(self, module):
+            raise ImportError(f"blocked import: {module.__name__}")
 
     class Blocker:
         def find_spec(self, name, path=None, target=None):
             if name.split(".")[0] in BLOCKED:
-                raise ImportError(f"blocked import: {name}")
+                return importlib.machinery.ModuleSpec(name, Refuse())
             return None
 
     sys.meta_path.insert(0, Blocker())
@@ -81,14 +93,61 @@ def _imports(path: Path) -> set[str]:
     return tops
 
 
+# the MLIP worker scripts also reach the MLIP stack (quacc and ase, no JAX)
+# where it is importable
+MLIP_DIR = PACKAGE / "rewards" / "calculators" / "mlip"
+MLIP_STACK = {"quacc", "ase"}
+
+
 def test_ast_imports_are_torch_numpy_and_stdlib_only():
     # _build/ holds kernel builds made at run time, not package sources
     files = [p for p in sorted(PACKAGE.rglob("*.py")) if "_build" not in p.parts]
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    assert {p.name for p in files if p.parent == MLIP_DIR} >= {"calc.py", "phonon.py", "elastic.py"}
     for path in files:
-        extra = _imports(path) - ALLOWED
+        allowed = ALLOWED | (MLIP_STACK if path.parent == MLIP_DIR else set())
+        extra = _imports(path) - allowed
         assert not extra, f"{path.relative_to(ROOT)} imports {sorted(extra)}"
+
+
+def test_mlip_workers_run_without_jax_and_the_bridge_keeps_the_environment(tmp_path, monkeypatch):
+    """Each worker script, run as the bridge runs it (``__main__``, its own
+    checkout on the path), imports no JAX and nothing of the JAX package;
+    the bridge hands the worker the caller's environment unchanged."""
+    from matinvent_tpu_torch.rewards.calculators.mlip import calc
+
+    for script in ("phonon.py", "elastic.py"):
+        out = tmp_path / f"{script}.txt"
+        proc = _run(textwrap.dedent(
+            f"""
+            import runpy
+            from matinvent_tpu_torch.chem.structure import Structure, save_extxyz
+            import numpy as np
+            s = Structure.from_parameters([5.0] * 3, [90] * 3, [55], np.zeros((1, 3)))
+            xyz = save_extxyz([s], {str(tmp_path / 'in.extxyz')!r})
+            sys.argv = [{script!r}, xyz, {str(out)!r}, "1", "--device", "cpu"]
+            runpy.run_path({str(MLIP_DIR / script)!r}, run_name="__main__")
+            bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+            assert not bad, bad
+            """
+        ), cwd=tmp_path)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert "backend: native" in proc.stderr
+        assert np.isfinite(float(out.read_text()))
+
+    seen = {}
+
+    def fake_run(cmd, **kw):
+        seen.update(kw)
+        raise RuntimeError("stop")
+
+    monkeypatch.setattr(calc.subprocess, "run", fake_run)
+    monkeypatch.setenv("PYTHONPATH", "/elsewhere")
+    bridge = calc.MLIPBridge(root_dir=str(tmp_path / "b"), task="heat_capacity", device="cpu")
+    with pytest.raises(RuntimeError, match="stop"):
+        bridge.calc(([], str(tmp_path / "in.extxyz")))
+    assert "env" not in seen  # the worker inherits os.environ as it is
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

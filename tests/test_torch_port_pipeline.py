@@ -375,11 +375,7 @@ def test_entry_point_runs_one_tiny_iteration_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    # the knn edge style (ROADMAP Queue 1 item 7)
-    "model.config_overrides={\"edge_style\": \"knn\"}", "sample_cfg.mlip_opt=true",
-    "sample_cfg.filter={\"metrics\": [\"validity\"], \"relaxer\": \"mlip\"}",
-    # CSP mode, and a calculator class that is not ported (ALIGNN)
-    "model.sample_cfg.target_compositions_dict={\"Fe\": 2, \"O\": 3}",
+    # a calculator class that is not ported (ALIGNN)
     "reward.prop_cfg=[{\"name\": \"band_gap\", \"calculator\": {\"class\": \"ALIGNN\", "
     "\"root_dir\": \"rewards/band_gap\", \"task\": \"band_gap\"}, \"target\": 3.0, "
     "\"minv\": 0.0, \"maxv\": 2.0}]",
@@ -390,6 +386,59 @@ def test_options_not_ported_raise(tmp_path, option):
     with pytest.raises(NotImplementedError):
         mat_invent.build(cfg, str(tmp_path), device="cpu")
 
+
+_RELAXER = '{"class": "SoftSphereRelaxer", "steps": 5, "max_atoms": 20}'
+
+
+def _mlip(task):
+    return ('reward.prop_cfg=[{"name": "%s", "calculator": {"class": "MLIPBridge", '
+            '"root_dir": "rewards/%s", "task": "%s", "env_name": null, "worker": 1}, '
+            '"target": "ascending", "minv": 0.0, "maxv": 2.0}]' % (task, task, task))
+
+
+@pytest.mark.parametrize("option", [
+    # the knn edge style
+    "model.config_overrides={\"edge_style\": \"knn\"}",
+    # MLIP relaxation before the filter, and the filter's own relaxer
+    f"sample_cfg.mlip_opt={_RELAXER}",
+    f"sample_cfg.filter={{\"metrics\": [\"validity\"], \"relax\": true, \"relaxer\": {_RELAXER}}}",
+    # CSP mode
+    "model.sample_cfg.target_compositions_dict=[{\"Fe\": 2, \"O\": 3}]",
+    # the MLIP bridge's two tasks
+    _mlip("heat_capacity"), _mlip("bulk_modulus"),
+])
+def test_ported_options_run_one_tiny_iteration(tmp_path, option):
+    """The options the earlier slices refused build and run one tiny CPU
+    iteration of the entry point."""
+    key = option if option.startswith(("model.", "reward.")) else f"pipeline.{option}"
+    out = tmp_path / "run"
+    # two scored crystals keep the MLIP workers' Hessians few
+    pipe = mat_invent.main(["--recipe", "rl_hhi_rich5", "--rl-epoch", "1", "--out", str(out),
+                            "--device", "cpu", *TINY, "--set", "pipeline.sample_cfg.max_num=2",
+                            "--set", key])
+    with open(out / "metrics.csv") as fh:
+        rows = list(csv.DictReader(fh))
+    assert len(rows) == 1
+    valid = read_extxyz(str(out / "samples/step_0000_valid.extxyz"))
+    if "knn" in option:
+        assert pipe.agent.config.edge_style == "knn"
+        assert pipe.agent.decoder.edge_style == "knn"
+    elif "mlip_opt" in option:
+        assert isinstance(pipe.mlip_opt, mat_invent.SoftSphereRelaxer)
+        assert pipe.mlip_opt.steps == 5
+    elif "filter" in option:
+        assert isinstance(pipe.filter.relaxer, mat_invent.SoftSphereRelaxer)
+        assert "frac_validity" in rows[0]
+    elif "target_compositions" in option:
+        assert {s.composition.formula for s in valid} == {"Fe2O3"}
+    else:
+        task = "heat_capacity" if "heat" in option else "bulk_modulus"
+        bridge = pipe.reward.prop_cfg[0]["calculator"]
+        assert "backend: native soft-sphere" in bridge.last_stderr
+        # one value per scored crystal (an untrained tiny model's cells are
+        # degenerate: their values are NaN, and nothing is fine-tuned)
+        values = np.atleast_1d(np.loadtxt(out / f"rewards/{task}/step_0000.txt"))
+        assert values.shape == (2,)
 
 
 def test_chip_smoke_validity_record_is_the_jax_record():
