@@ -76,6 +76,21 @@ launch counts set to 0 just before and read just after:
   the plain net (the kernel takes fc edges only: 0 launches);
 * conditional DDPO (phase ``ddpo_cond``): two ``rl_cond_ddpo`` iterations,
   held as the other DDPO phases.
+* the config-driven entry points as a user runs them: ``python -m
+  matinvent_tpu_torch.main`` with ``model=mattergen`` from the start
+  checkpoint, ``reward=hhi`` and ``configs/``'s defaults for one iteration
+  (phase ``main``), the same with ``pipeline=baseline`` (phase
+  ``baseline``: the agent bit-equal afterwards), and ``gen_eval`` at 2 x 64
+  crystals with the 1024 record's arguments (phase ``gen_eval``); each
+  launches the edge kernel as the sampler's plan says (one padded batch:
+  12,000 launches per call);
+* pretraining (phase ``pretrain``): one DiffCSP step at
+  ``configs/model/diffcsp.yaml``'s width and one MatterGen step at h256/L6
+  on the card against the CPU, then ``tools.pretrain`` for 50 steps on
+  ``corpus_r5`` at batch 128, its checkpoint reloaded and sampled; the
+  plain net trains, so no edge kernel is launched (read and held at 0);
+* SynScore's trainer (phase ``syn_score_train``): one batched update of
+  all 100 bags, card against CPU.
 
 Kernel times are device times (CUDA graph replay, ``experiments/timing.py``).
 Each phase prints one JSON line (the harnesses print their own records
@@ -128,21 +143,30 @@ from matinvent_tpu_torch.experiments.timing import (
     time_ms,
 )
 from matinvent_tpu_torch.models.cspnet import sinusoids_embedding
-from matinvent_tpu_torch.models.mattergen.diffusion import MGNoised, NoiseDraws
-from matinvent_tpu_torch.models.diffcsp import NoisedInput, sinusoidal_time_embedding
+from matinvent_tpu_torch import gen_eval as entry_gen_eval
+from matinvent_tpu_torch import main as entry_main
+from matinvent_tpu_torch.models.mattergen.diffusion import MatterGenDiffusion, MGNoised, NoiseDraws
+from matinvent_tpu_torch.models.diffcsp import DiffCSPDiffusion, NoisedInput, sinusoidal_time_embedding
+from matinvent_tpu_torch.models.diffcsp import NoiseDraws as CSPNoiseDraws
 from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
 from matinvent_tpu_torch.models.sample import DiffCSPSampler, batch_to_structures
 from matinvent_tpu_torch.models.suite.diffcsp import DiffCSPSuite
 from matinvent_tpu_torch.models.suite.mattergen import load_model
 from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain, fused_edge_chain_plain
+from matinvent_tpu_torch.parallel.pretrain import PretrainTrainer, structures_to_batches
 from matinvent_tpu_torch.parallel.train import FinetuneStep
 from matinvent_tpu_torch.parallel.train_predictor import PredictorTrainer, labeled_batches
 from matinvent_tpu_torch.pipeline import mat_invent
+from matinvent_tpu_torch.pipeline.baseline import Baseline
 from matinvent_tpu_torch.pipeline.filters import OptEval, ReferenceDataset
 from matinvent_tpu_torch.rewards.calculators import PropertyPredictor, SynScore
 from matinvent_tpu_torch.rewards.calculators.mlip import MLIPBridge
 from matinvent_tpu_torch.rewards.calculators.predictor import TASK_MODEL_DICT, PropertyGNN
+from matinvent_tpu_torch.tools import pretrain as pretrain_tool
+from matinvent_tpu_torch.tools import train_syn_score
 from matinvent_tpu_torch.utils.checkpoint import load_run_state
+from matinvent_tpu_torch.utils.config import load_config, read_flat_yaml
+from matinvent_tpu_torch.utils.yaml_io import read_yaml
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "experiments/results/rl_hhi_rich5/models/final"
@@ -189,6 +213,24 @@ CSP_BATCH, KNN_BATCH = 64, 64
 # phase relax_phonon: corpus structures, and the supercell budget of the
 # card-against-CPU comparison of C_v on structures as given
 PHONON_CORPUS, PHONON_SUPERCELL = 32, 32
+# the config-driven entry points: ``main``/``Baseline`` with configs/'
+# defaults (base OptFilter, 64 samples); gen_eval 2 x 64 crystals
+MAIN_ARGS = ["model=mattergen", f"model.model_path={START}", "reward=hhi", "rl_epoch=1",
+             "eval_size=16"]
+GEN_EVAL_BATCH, GEN_EVAL_BATCHES = 64, 2
+# pretraining: configs/model/diffcsp.yaml's width on corpus_r5; MatterGen's
+# step at the start checkpoint's h256/L6. Card vs CPU on the same draws,
+# both f32 (TF32 off): the loss and the gradient norm within the net's own
+# card-vs-CPU spread (DiffCSP: NET_TOL, phase diffcsp; MatterGen: the
+# fine-tune chunk's 1e-4, phase finetune); after one Adam step every weight
+# within 2 lr and all but 1% within lr / 100 (a gradient at f32 noise level
+# may move its weight by lr in opposite directions)
+PRETRAIN_STEPS, PRETRAIN_BATCH, PRETRAIN_LR = 50, 128, 1e-3
+MG_PRETRAIN_BATCH, MG_PRETRAIN_LR, MG_PRETRAIN_TOL = 16, 1e-4, 1e-4
+PRETRAIN_READ = 2000  # corpus structures read for the card-vs-CPU steps
+PRETRAIN_SAMPLES = 16
+# SynScore's trainer: all 100 bags, SYN_STEPS steps card vs CPU, then timed
+SYN_BAGS, SYN_N, SYN_STEPS, SYN_TIMED, SYN_LR = 100, 2000, 5, 20, 3e-3
 DEV = "cuda"
 BATCH, BUCKETS, MAX_ATOMS, SEED = 256, 4, 20, 0
 SOURCES = ("fused_edge", "edge_flat")  # csrc/<name>.cu
@@ -1613,6 +1655,366 @@ def phase_knn() -> dict:
     return rec
 
 
+class SampleCalls:
+    """Counts the buckets of every MatterGen sampling call while active
+    (``sample`` samples one padded batch, ``sample_bucketed`` one per
+    cap): the plan the edge kernel's launches follow."""
+
+    def __enter__(self):
+        self.buckets = 0
+        self._orig = sample, bucketed = MatterGenDiffusion.sample, MatterGenDiffusion.sample_bucketed
+
+        def counted(model, *args, **kwargs):
+            self.buckets += 1
+            return sample(model, *args, **kwargs)
+
+        def counted_bucketed(model, gen, na_buckets, caps, *args, **kwargs):
+            self.buckets += len(caps)
+            return bucketed(model, gen, na_buckets, caps, *args, **kwargs)
+
+        MatterGenDiffusion.sample, MatterGenDiffusion.sample_bucketed = counted, counted_bucketed
+        return self
+
+    def __exit__(self, *exc):
+        MatterGenDiffusion.sample, MatterGenDiffusion.sample_bucketed = self._orig
+
+
+def _per_bucket(model) -> int:
+    c = model.config
+    return c.num_layers * (1 + c.n_corrector) * c.timesteps
+
+
+def _drive(fn, cwd_back: str):
+    """``fn()`` (an entry point) with the launch count set to 0 just before
+    and read just after, the pipeline's log captured and the working
+    directory restored; (result, launches, planned buckets, seconds,
+    messages)."""
+    def run(log):
+        torch.cuda.synchronize()
+        fused_edge_chain.launches = 0
+        with SampleCalls() as calls:
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+        return out, fused_edge_chain.launches, calls.buckets, seconds, list(log.messages)
+
+    try:
+        return _run_logged(run)
+    finally:
+        os.chdir(cwd_back)
+
+
+def _check_launches(name: str, launches: int, buckets: int, model) -> int:
+    expected = buckets * _per_bucket(model)
+    if launches != expected or launches == 0:
+        raise AssertionError(f"{name}: {launches} edge-kernel launches, the bucket plan "
+                             f"({buckets} buckets) gives {expected}")
+    return expected
+
+
+def phase_main() -> dict:
+    """``python -m matinvent_tpu_torch.main`` as a user runs it: ``model=
+    mattergen`` from the start checkpoint, the HHI reward, one iteration,
+    ``configs/``'s defaults otherwise (the base ``OptFilter`` with the
+    disordered matcher, 64 samples, ``max_num`` 16, replay, the diversity
+    filter, 3 epochs of 20 chunks of 50). The edge kernel's launches equal
+    the sampler's plan; the artifacts of JAX's ``main``; a finite reward
+    and finite fine-tune losses; the agent moved."""
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_main_")
+    try:
+        pipe, launches, buckets, seconds, messages = _drive(
+            lambda: entry_main.main([*MAIN_ARGS, f"results_dir={out}", "expname=main"]),
+            os.getcwd())
+        run = Path(out) / "main"
+        if not isinstance(pipe, mat_invent.MatInvent) or pipe.agent.device.type != torch.device(DEV).type:
+            raise AssertionError(f"main built {type(pipe).__name__} on {pipe.agent.device}")
+        if type(pipe.filter.matcher).__name__ != "DisorderedStructureMatcher":
+            raise AssertionError(f"the base filter's matcher is {pipe.filter.matcher!r}")
+        expected = _check_launches("main", launches, buckets, pipe.agent)
+        hp = read_yaml(run / "hparams.yaml")
+        if hp["model"]["_target_"] != "matinvent_tpu_torch.models.suite.mattergen.MatterGenSuite":
+            raise AssertionError(f"hparams.yaml model target {hp['model']['_target_']}")
+        for rel in ("metrics.csv", "samples/step_0000_valid.extxyz", "samples/step_0000_eval.extxyz",
+                    "samples/long_term_memory.csv", "models/final/params.msgpack"):
+            if not (run / rel).is_file():
+                raise AssertionError(f"main wrote no {rel}")
+        row = pipe.logger.rows[-1]
+        losses = [float(v) for m in messages for v in re.findall(r"loss\w*: (\S+?)(?:,|$)", m)]
+        if not math.isfinite(float(row.get("reward mean", "nan"))) or not losses or \
+                not all(map(math.isfinite, losses)):
+            raise AssertionError(f"reward mean {row.get('reward mean')}, losses {losses}")
+        start = load_model(START, device=DEV)
+        if all(torch.equal(v, pipe.agent.state_dict()[k]) for k, v in start.state_dict().items()):
+            raise AssertionError("the fine-tune left the agent at the start checkpoint")
+        valid = [int(v) for m in messages for v in re.findall(r"Number of valid samples: (\d+)", m)]
+        filtered = [int(v) for m in messages
+                    for v in re.findall(r"Number of filtered samples: (\d+)", m)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    rec = dict(phase="main", args=MAIN_ARGS, kernel_launches=launches, expected_launches=expected,
+               buckets=buckets, valid=valid, filtered=filtered, reward_mean=row.get("reward mean"),
+               finetune_losses=losses, seconds_run=seconds,
+               **{k: row.get(k) for k in ("time_sample_s", "time_score_s", "time_finetune_s")},
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def phase_baseline() -> dict:
+    """The same with ``pipeline=baseline``: sampling and scoring only; the
+    launches follow the plan, no model is saved, and the agent is bit-equal
+    to the start checkpoint afterwards."""
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_baseline_")
+    try:
+        pipe, launches, buckets, seconds, messages = _drive(
+            lambda: entry_main.main([*MAIN_ARGS, "pipeline=baseline", f"results_dir={out}",
+                                     "expname=baseline"]), os.getcwd())
+        run = Path(out) / "baseline"
+        if not isinstance(pipe, Baseline):
+            raise AssertionError(f"pipeline=baseline built {type(pipe).__name__}")
+        expected = _check_launches("baseline", launches, buckets, pipe.agent)
+        start = load_model(START, device=DEV)
+        if any(not torch.equal(v, pipe.agent.state_dict()[k]) for k, v in start.state_dict().items()):
+            raise AssertionError("Baseline changed the agent's weights")
+        if (run / "models" / "final").exists() or not (run / "samples/step_0000_valid.extxyz").is_file():
+            raise AssertionError("Baseline's artifacts differ from JAX's")
+        row = pipe.logger.rows[-1]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    rec = dict(phase="baseline", kernel_launches=launches, expected_launches=expected,
+               buckets=buckets, reward_mean=row.get("reward mean"), crystal_num=row.get("crystal_num"),
+               seconds_run=seconds, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def phase_gen_eval() -> dict:
+    """``python -m matinvent_tpu_torch.gen_eval`` with the 1024 record's
+    arguments at 2 x 64 crystals: the start checkpoint, ``corpus_r5`` as the
+    reference, its hull and its atom-count histogram, relaxation on the
+    card, both matcher tiers. ``metrics.json`` has the record's keys and
+    fractions in [0, 1]; the launches (a warm launch and two timed ones)
+    follow the plan; structures per second."""
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_gen_eval_")
+    try:
+        args = ["model=mattergen", f"model.model_path={START}", f"output_dir={out}",
+                f"batch_size={GEN_EVAL_BATCH}", f"num_batches={GEN_EVAL_BATCHES}",
+                f"reference_path={CORPUS}", f"reference_energies={CORPUS_ENERGIES}", "relax=true",
+                f"num_atoms_from={CORPUS}", "structure_matcher=disordered,ordered"]
+        metrics, launches, buckets, seconds, _ = _drive(lambda: entry_gen_eval.main(args),
+                                                        os.getcwd())
+        expected = _check_launches("gen_eval", launches, buckets, load_model(START, device="cpu"))
+        with open(GEN_EVAL_RECORD) as fh:
+            record = json.load(fh)
+        if set(metrics) != set(record) or set(metrics["by_matcher"]) != set(record["by_matcher"]):
+            raise AssertionError(f"metrics.json keys {sorted(metrics)} != {sorted(record)}")
+        fracs = [v for tier in metrics["by_matcher"].values() for v in tier.values()]
+        if not all(0.0 <= v <= 1.0 for v in fracs) or metrics["num_generated"] != \
+                GEN_EVAL_BATCH * GEN_EVAL_BATCHES:
+            raise AssertionError(f"gen_eval metrics {metrics}")
+        written = read_extxyz(str(Path(out) / "generated_crystals.extxyz"))
+        if len(written) != GEN_EVAL_BATCH * GEN_EVAL_BATCHES:
+            raise AssertionError(f"{len(written)} structures written")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    rec = dict(phase="gen_eval", metrics=metrics, kernel_launches=launches,
+               expected_launches=expected, buckets=buckets, seconds_run=seconds,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def _adam_close(a: dict, b: dict, lr: float, what: str) -> tuple[float, float]:
+    """(largest difference, share of entries beyond lr / 100) of two
+    weight sets after one Adam step; raises past 2 lr or a 1% share."""
+    worst, loose, total = 0.0, 0, 0
+    for k, v in b.items():
+        d = (a[k].detach().cpu().double() - v.detach().cpu().double()).abs()
+        worst = max(worst, float(d.max()))
+        loose += int((d > lr / 100).sum())
+        total += d.numel()
+    if worst > 2 * lr or loose > 0.01 * total:
+        raise AssertionError(f"{what}: weights after the step differ by {worst} "
+                             f"({loose} of {total} entries beyond lr/100)")
+    return worst, loose / total
+
+
+def _step_card_vs_cpu(card, cpu, batch, given: dict, lr: float, tol: float, what: str) -> dict:
+    """One ``PretrainTrainer`` step of the same weights on the card and on
+    the CPU with the same draws ``given``; their loss and gradient norm
+    within ``tol`` relative, their weights after the step by
+    ``_adam_close``."""
+    out = {}
+    for tag, model in (("card", card), ("cpu", cpu)):
+        dev = next(model.parameters()).device
+        trainer = PretrainTrainer(model, lr=lr)
+        moved = {k: (v.to(dev) if torch.is_tensor(v) else
+                     type(v)(*(x.to(dev) for x in v))) for k, v in given.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = trainer.step(trainer.optimizer(), 0, batch, **moved)
+        out[tag] = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        out[f"{tag}_seconds"] = time.perf_counter() - t
+    for k in ("loss", "grad_norm"):
+        a, b = out["card"][k], out["cpu"][k]
+        if not math.isfinite(a) or abs(a - b) > tol * abs(b):
+            raise AssertionError(f"{what}: card {k} {a} vs CPU {b} (tolerance {tol} relative)")
+    worst, share = _adam_close(card.state_dict(), cpu.state_dict(), lr, what)
+    return dict(loss_card=out["card"]["loss"], loss_cpu=out["cpu"]["loss"],
+                grad_norm_card=out["card"]["grad_norm"], grad_norm_cpu=out["cpu"]["grad_norm"],
+                weights_max_abs_diff=worst, weights_share_beyond_lr_100=share,
+                card_step_seconds=out["card_seconds"], cpu_step_seconds=out["cpu_seconds"])
+
+
+def phase_pretrain() -> dict:
+    """Pretraining on the card, launching no edge kernel (the plain net
+    trains): DiffCSP at ``configs/model/diffcsp.yaml``'s width, one step on
+    the card against the CPU on numpy's draws (the first 2,000 corpus
+    structures' batches); ``tools.pretrain`` on
+    ``corpus_r5`` (batch 128, 50 steps): the loss curve, ms per step, peak
+    memory; its checkpoint loads into ``DiffCSPSuite`` with equal weights
+    and samples 16 crystals; then MatterGen's ``training_loss`` step at
+    h256/L6 (the start checkpoint, batch 16), card against CPU."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    fused_edge_chain.launches = 0
+    structures = read_extxyz(str(CORPUS), limit=PRETRAIN_READ)
+    rng = np.random.default_rng(5)
+    model_cfg = load_config(ROOT / "configs", "base", ["model=diffcsp"])["model"]["model_cfg"]
+    card = DiffCSPSuite(model_cfg=model_cfg, sample_cfg={"max_atoms": MAX_ATOMS}, seed=0,
+                        device=DEV).load_model()
+    cpu = DiffCSPDiffusion(card.config, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batch = next(structures_to_batches(structures, PRETRAIN_BATCH, MAX_ATOMS, rng))
+    B, A, K = PRETRAIN_BATCH, MAX_ATOMS, card.config.max_atomic_num
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    csp_given = dict(t=torch.from_numpy(rng.integers(1, card.config.timesteps + 1, B)),
+                     draws=CSPNoiseDraws(normal(B, 3, 3), normal(B, A, 3), normal(B, A, K)))
+    diffcsp_step = _step_card_vs_cpu(card, cpu, batch, csp_given, PRETRAIN_LR, NET_TOL,
+                                     "DiffCSP step")
+    del card, cpu
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    timed: dict = {}
+    train = PretrainTrainer.train
+
+    def timed_train(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = train(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        timed["seconds"] = time.perf_counter() - t
+        return result
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        PretrainTrainer.train = timed_train
+        try:
+            model, history = _run_logged(lambda log: pretrain_tool.main([
+                f"data={CORPUS}", f"output_dir={ckpt}", f"steps={PRETRAIN_STEPS}",
+                f"batch_size={PRETRAIN_BATCH}", f"max_atoms={MAX_ATOMS}"]))
+        finally:
+            PretrainTrainer.train = train
+        peak = torch.cuda.max_memory_allocated()
+        curve = [h["loss"] for h in history]
+        if len(curve) != PRETRAIN_STEPS or not all(map(math.isfinite, curve)) \
+                or np.mean(curve[-5:]) >= curve[0]:
+            raise AssertionError(f"pretraining loss curve {curve}")
+        files = sorted(os.listdir(ckpt))
+        if files != ["config.yaml", "params.msgpack", "state_dict.npz"]:
+            raise AssertionError(f"the checkpoint holds {files}")
+        cfg_back = read_flat_yaml(Path(ckpt) / "config.yaml")
+        if any(cfg_back[k] != v for k, v in model_cfg.items()):
+            raise AssertionError(f"config.yaml {cfg_back} vs {model_cfg}")
+        with np.load(Path(ckpt) / "state_dict.npz") as npz:
+            torch_layout = sorted(npz.files)
+        suite = DiffCSPSuite(model_path=ckpt, sample_cfg={"max_atoms": MAX_ATOMS},
+                             config_overrides={"sample_clip": DIFFCSP_CLIP}, device=DEV)
+        loaded = suite.load_model()
+        if any(not torch.equal(v, model.state_dict()[k]) for k, v in loaded.state_dict().items()):
+            raise AssertionError("the saved checkpoint loads to other weights")
+        t = time.perf_counter()
+        sampled = DiffCSPSampler(batch_size=PRETRAIN_SAMPLES, num_batches=1, max_atoms=MAX_ATOMS,
+                                 seed=0).launch(loaded)
+        torch.cuda.synchronize()
+        sample_seconds = time.perf_counter() - t
+        if sampled.frac_coords.shape != (PRETRAIN_SAMPLES, MAX_ATOMS, 3) or \
+                not torch.isfinite(sampled.lattice).all():
+            raise AssertionError("the pretrained checkpoint's samples are not finite")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    card = load_model(START, device=DEV)
+    cpu = load_model(START, device="cpu")
+    Bm, T = MG_PRETRAIN_BATCH, card.config.timesteps
+    mg_batch = next(structures_to_batches(structures, Bm, MAX_ATOMS, rng))
+    mg_given = dict(
+        t=torch.from_numpy(rng.uniform(1.0 / T, 1.0, Bm).astype(np.float32)),
+        draws=NoiseDraws(normal(Bm, 3, 3), normal(Bm, A, 3),
+                         torch.from_numpy(rng.gumbel(size=(Bm, A, card.d3pm.vocab)).astype(np.float32))))
+    mattergen_step = _step_card_vs_cpu(card, cpu, mg_batch, mg_given, MG_PRETRAIN_LR,
+                                       MG_PRETRAIN_TOL, "MatterGen step")
+    torch.cuda.synchronize()
+    launches = fused_edge_chain.launches
+    if launches != 0:
+        raise AssertionError(f"pretraining launched {launches} edge kernels")
+    rec = dict(phase="pretrain", kernel_launches=launches, diffcsp_step=diffcsp_step,
+               diffcsp_width=model_cfg, steps=PRETRAIN_STEPS, batch=PRETRAIN_BATCH,
+               loss_curve=curve, ms_per_step=1e3 * timed["seconds"] / PRETRAIN_STEPS,
+               train_seconds=timed["seconds"], peak_memory_bytes=peak,
+               state_dict_npz_keys=len(torch_layout), samples=PRETRAIN_SAMPLES,
+               sample_seconds=sample_seconds, mattergen_step=mattergen_step,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def phase_syn_score_train() -> dict:
+    """``tools/train_syn_score``'s ensemble update over all 100 bags on the
+    card against the CPU: the same initial weights and bootstrap columns,
+    ``SYN_STEPS`` Adam steps (each loss within 1e-5 relative, the weights
+    by ``_adam_close`` per step); then ms per step on the card and the
+    folded ensemble's validation accuracy and AUC."""
+    t0 = time.perf_counter()
+    data = train_syn_score.prepare(SYN_N, 0, SYN_BAGS)
+    n_train = data["boots"].shape[1]
+    init = train_syn_score.init_params(SYN_BAGS, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(9)
+    cols = [rng.integers(0, n_train, (SYN_BAGS, train_syn_score.BATCH)) for _ in range(SYN_STEPS)]
+    params = {tag: {k: v.to(dev).clone() for k, v in init.items()}
+              for tag, dev in (("card", DEV), ("cpu", "cpu"))}
+    losses = {tag: train_syn_score.train_ensemble(p, data["Xtr"], data["ytr"], data["boots"],
+                                                  SYN_STEPS, SYN_LR, cols=cols)
+              for tag, p in params.items()}
+    for a, b in zip(losses["card"], losses["cpu"]):
+        if abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"SynScore trainer losses card {losses['card']} cpu {losses['cpu']}")
+    worst, share = _adam_close(params["card"], params["cpu"], SYN_STEPS * SYN_LR, "SynScore trainer")
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    train_syn_score.train_ensemble(params["card"], data["Xtr"], data["ytr"], data["boots"],
+                                   SYN_TIMED, SYN_LR, generator=gen)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / SYN_TIMED
+    acc, auc = train_syn_score.validate(train_syn_score.fold(params["card"], data["mu"], data["sd"]),
+                                        data["Xva_raw"], data["yva"], DEV)
+    rec = dict(phase="syn_score_train", bags=SYN_BAGS, n=SYN_N, n_train=n_train,
+               steps_compared=SYN_STEPS, losses_card=losses["card"], losses_cpu=losses["cpu"],
+               weights_max_abs_diff=worst, weights_share_beyond_lr_100=share,
+               ms_per_step=ms, val_acc=acc, val_auc=auc, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
 def instances(build_rec: dict, library: str, prefix: str) -> list[dict]:
     """The build's instances of ``library`` whose name starts with
     ``prefix``: registers, spills and shared memory of each."""
@@ -1658,6 +2060,9 @@ def main() -> int:
     csp_mode = phase_csp()
     knn = phase_knn()
     ddpo.append(phase_ddpo("ddpo_cond", "rl_cond_ddpo"))
+    entry = {"main": phase_main(), "baseline": phase_baseline(), "gen_eval": phase_gen_eval()}
+    pre = phase_pretrain()
+    phase_syn_score_train()
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     b = kern["buckets"]
     common = dict(route="cuda", impl="cuda", checked=True)
@@ -1677,6 +2082,10 @@ def main() -> int:
         launches_diffcsp_ddpo=[csp["iteration"]["kernel_launches"]] + [
             it["kernel_launches"] for rec in ddpo for it in rec["iterations"]],
         launches_knn=knn["kernel_launches"],
+        # the config-driven entry points (> 0, the sampler's plan) and
+        # pretraining (the plain net: 0)
+        **{f"launches_{k}": v["kernel_launches"] for k, v in entry.items()},
+        launches_pretrain=pre["kernel_launches"],
         max_abs_err=kern["max_abs_err_f32"],
         max_abs_err_bf16=kern["max_abs_err_bf16"],
         # one layer-eval of the batch: the sum over the bucket shapes, f32

@@ -29,7 +29,8 @@ replayed log-probs by rounding). ``fixed_types`` holds the types through
 the chain (CSP mode, the sampler's ``target_compositions_dict``).
 
 The training half (``add_noise``, ``sample_losses``, ``kl_reg``,
-``rl_timestep_loss``, ``rl_chunk_loss``) always runs the f32 net on the
+``rl_timestep_loss``, ``rl_chunk_loss``, the pretraining ``training_loss``)
+always runs the f32 net on the
 plain edge path, as the JAX package trains its XLA net: the edge kernel has
 no backward. ``rl_chunk_loss`` sends its timesteps x crystals through one
 batched forward, as JAX's ``vmap`` does; the frozen prior's predictions come
@@ -276,20 +277,29 @@ class MatterGenDiffusion(nn.Module):
     def add_noise(
         self,
         batch: CrystalBatch,
-        t_index: torch.Tensor | int,
+        t_index: torch.Tensor | int | None = None,
         draws: NoiseDraws | None = None,
         generator: torch.Generator | None = None,
+        t: torch.Tensor | None = None,
     ) -> tuple[MGNoised, MGTargets, torch.Tensor]:
         """Corrupt every field of ``batch`` at grid index ``t_index`` (an int
-        or ``[B]``), with ``draws`` or, when none are given, draws from
-        ``generator``."""
+        or ``[B]``), or at the times ``t`` ``[B]``, or, when both are None,
+        at times drawn uniformly from ``[1/T, 1)`` with ``generator`` (the
+        pretraining loss); with ``draws`` or, when none are given, draws
+        from ``generator``."""
         c = self.config
         B, A = batch.batch_size, batch.max_atoms
         dev = batch.frac_coords.device
+        if t is None and t_index is None:
+            lo = 1.0 / c.timesteps
+            u = torch.rand((B,), generator=generator, device=dev)
+            t = torch.clamp(u * (1.0 - lo) + lo, min=lo)
         if draws is None:
             draws = noise_draws((), B, A, self.d3pm.vocab, generator, dev)
-        idx = torch.as_tensor(t_index, device=dev)
-        t = self.time_grid().to(dev)[idx].expand(B)
+        if t is None:
+            idx = torch.as_tensor(t_index, device=dev)
+            t = self.time_grid().to(dev)[idx].expand(B)
+        t = t.to(device=dev, dtype=torch.float32)
 
         lattice_t, eps_cell, _ = self.cell_sde.sample_marginal(
             batch.lattice, t, batch.num_atoms, draws.cell
@@ -402,6 +412,36 @@ class MatterGenDiffusion(nn.Module):
         ld, lk = self._rl_terms(prior, batch, rewards, t_indices, draws, generator, conditions)
         per_t = torch.mean(ld + lk * sigma_kl, dim=1)
         return torch.mean(per_t), (ld.sum(), lk.sum())
+
+    # ------------------------------------------------------------ pretraining
+    def training_loss(
+        self, batch: CrystalBatch, draws: NoiseDraws | None = None,
+        generator: torch.Generator | None = None, conditions=None,
+        cond_dropout: float = 0.1, t: torch.Tensor | None = None, cond_mask=None,
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """The pretraining objective at uniform random times (or ``t``), with
+        classifier-free condition dropout: each field of ``conditions`` is
+        kept for the crystals whose uniform draw is ``>= cond_dropout`` (or
+        by ``cond_mask``, ``{field: [B] bool}``) and replaced by the null
+        token for the rest; the fields draw in sorted order from
+        ``generator`` after the corruption."""
+        c = self.config
+        noised, targets, _ = self.add_noise(batch, None, draws, generator, t=t)
+        if not conditions:
+            cond_mask = None
+        elif cond_mask is None:
+            B, dev = batch.batch_size, batch.frac_coords.device
+            cond_mask = {
+                f: torch.rand((B,), generator=generator, device=dev) >= cond_dropout
+                for f in sorted(conditions)
+            }
+        preds = self.apply_net(noised, batch.num_atoms, batch.mask, conditions, cond_mask)
+        loss_cell, loss_pos, loss_types = self._field_losses(preds, targets, noised, batch.mask)
+        loss = torch.mean(
+            c.weight_cell * loss_cell + c.weight_pos * loss_pos + c.weight_types * loss_types
+        )
+        return loss, dict(loss=loss, loss_cell=torch.mean(loss_cell),
+                          loss_pos=torch.mean(loss_pos), loss_types=torch.mean(loss_types))
 
     # --------------------------------------------------------------- sampling
 

@@ -31,6 +31,7 @@ class ReinL:
         replay: bool = False,
         replay_args: Dict | None = None,
         seed: int = 0,
+        **kwargs,
     ) -> None:
         self.rl_epoch = rl_epoch
         self.model_suite = model_suite
@@ -39,6 +40,8 @@ class ReinL:
         self.save_freq = save_freq
         self.logger = logger
         self.seed = seed
+        # keys of a pipeline config that the loop does not read, kept as JAX keeps them
+        self.cfg = dict(kwargs)
         self.step = 0
         self.cost = 0
         self.timer = PhaseTimer()

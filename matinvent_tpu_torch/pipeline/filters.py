@@ -267,9 +267,12 @@ def build_filter(cfg: dict | None, device=None, syn_root_dir: str | None = None)
     relaxer object (``pipeline.mat_invent.build_relaxer`` makes one from its
     config); ``None`` for no filter.
     ``device`` and ``syn_root_dir`` (where its scores are written) are the
-    default synthesizability screen's."""
+    default synthesizability screen's. An ``OptFilter`` (the config entry
+    point's ``instantiate`` builds one) is returned as it is."""
     if not cfg:
         return None
+    if isinstance(cfg, OptFilter):
+        return cfg
     if not isinstance(cfg, dict):
         raise TypeError(f"sample_cfg filter must be a dict of OptFilter arguments, got {cfg!r}")
     kwargs = dict(cfg)

@@ -4,7 +4,8 @@
 columns in the order they first appear, as the JAX package's pandas logger
 writes them (an empty field where a row has no value); it starts from the
 rows of an existing file, so a resumed run appends to them. ``PhaseTimer``
-times the phases of an RL iteration. The wandb logger is not ported.
+times the phases of an RL iteration. ``WandBLogger`` logs to wandb where
+that package is installed, and raises ``ImportError`` where it is not.
 """
 from __future__ import annotations
 
@@ -99,6 +100,32 @@ class CSVLogger(Logger):
             w.writerow(self.columns)
             for r in self.rows:
                 w.writerow([_field(r.get(c)) for c in self.columns])
+
+
+class WandBLogger(Logger):
+    """Logs each row to a wandb run; ``wandb`` is optional and the card
+    machine has none."""
+
+    def __init__(
+        self,
+        name: str,
+        project: str,
+        entity: str | None = None,
+        group: str | None = None,
+        mode: str = "online",
+        config=None,
+        **kwargs,
+    ):
+        try:
+            import wandb
+        except ImportError as e:
+            raise ImportError("wandb is not installed in this environment; use logger=csv") from e
+        self._wandb = wandb
+        wandb.init(name=name, project=project, entity=entity, group=group, mode=mode,
+                   config=config, **kwargs)
+
+    def log(self, update_dict: dict, step: int, split: str = "") -> None:
+        self._wandb.log(super().log(update_dict, step, split), step=int(step))
 
 
 class PhaseTimer:

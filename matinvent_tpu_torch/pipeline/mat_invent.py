@@ -117,6 +117,7 @@ class MatInvent(ReinL):
         async_sampling: bool = False,
         state_save_freq: int = 1,
         finetune_mode: str = "reward_weighted",
+        **kwargs,
     ) -> None:
         if finetune_mode not in ("reward_weighted", "ddpo"):
             raise ValueError(f"unknown finetune_mode {finetune_mode!r}")
@@ -126,7 +127,7 @@ class MatInvent(ReinL):
             rl_epoch=rl_epoch, model_suite=model_suite, reward=reward,
             sample_cfg=sample_cfg, finetune_cfg=finetune_cfg, save_dir=save_dir,
             save_freq=save_freq, logger=logger, replay=replay, replay_args=replay_args,
-            seed=seed,
+            seed=seed, **kwargs,
         )
         self.mlip_opt = build_relaxer(self.sample_cfg.get("mlip_opt"), model_suite.device)
         filter_cfg = self.sample_cfg.get("filter")
@@ -459,9 +460,12 @@ def _parse_value(text: str):
 
 def build_relaxer(cfg, device=None):
     """The relaxer of a config ``{"class": name, ...keyword arguments}`` on
-    ``device``; ``None`` for none."""
+    ``device``; ``None`` for none. A relaxer object (the config entry
+    point's ``instantiate`` builds one) is returned as it is."""
     if not cfg:
         return None
+    if callable(cfg):
+        return cfg
     if not isinstance(cfg, dict) or cfg.get("class") not in RELAXERS:
         raise ValueError(f"a relaxer config names one of {sorted(RELAXERS)} under 'class', "
                          f"got {cfg!r}")

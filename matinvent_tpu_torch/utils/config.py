@@ -1,8 +1,26 @@
-"""Reader and writer for the flat ``config.yaml`` that MatterGen checkpoints carry.
+"""The config engine of the entry points, and the reader and writer of the
+flat ``config.yaml`` that MatterGen checkpoints carry.
 
-``matinvent_tpu/models/suite/mattergen.py`` writes the model config with
-``yaml.safe_dump`` as one ``key: value`` line per ``MatterGenConfig`` field.
-The port reads that file without PyYAML: it accepts ``key: scalar`` lines
+The engine is ``matinvent_tpu/utils/config.py``'s Hydra-style one, on the
+port's own YAML reader (``utils/yaml_io.py``):
+
+* config groups: ``defaults: [{pipeline: mat_invent}, {model: diffcsp}, ...]``
+  load ``configs/<group>/<name>.yaml`` into ``cfg[group]``;
+* overrides: ``group=name`` switches a group file, ``a.b.c=value`` sets a
+  leaf (list indices included; the value read as YAML, ``1e-4`` as a
+  float), ``+a.b=v`` adds one;
+* interpolation: ``${path.to.key}`` and ``${calc:'<arith expr>'}`` (numbers
+  and arithmetic only);
+* instantiation: ``_target_`` nodes become objects, recursively unless
+  ``_recursive_: false``. A target under ``matinvent_tpu.`` resolves to the
+  same path under ``matinvent_tpu_torch.``; a target the port lacks raises
+  ``NotImplementedError`` naming it and its place in the config. The run's
+  device goes to every target whose constructor takes ``device``.
+
+``matinvent_tpu/models/suite/mattergen.py`` writes a checkpoint's model
+config with ``yaml.safe_dump`` as one ``key: value`` line per
+``MatterGenConfig`` field. ``read_flat_yaml`` reads that file: it accepts
+``key: scalar`` lines
 (null, booleans, integers, floats, plain or quoted strings), ``key: []``,
 and block sequences of scalars or of nested sequences under a key (the
 forms ``yaml.safe_dump`` writes for ``condition_fields`` and
@@ -12,9 +30,15 @@ the top level, block scalars, flow collections, anchors and tags.
 """
 from __future__ import annotations
 
+import ast
+import importlib
+import inspect
+import os
 import re
 from pathlib import Path
 from typing import Any
+
+from matinvent_tpu_torch.utils.yaml_io import dump_yaml, load_yaml, read_yaml
 
 _INT = re.compile(r"^[-+]?(0|[1-9][0-9]*)$")
 _FLOAT = re.compile(
@@ -125,60 +149,245 @@ def read_flat_yaml(path: str | Path) -> dict[str, Any]:
     return out
 
 
-_PLAIN = re.compile(r"^[A-Za-z_][A-Za-z0-9_.\-]*$")
-
-
-def _scalar_text(v: Any) -> str:
-    """``v`` as ``yaml.safe_load`` reads it back."""
-    if v is None:
-        return "null"
-    if isinstance(v, bool):
-        return "true" if v else "false"
-    if isinstance(v, int):
-        return str(v)
-    if isinstance(v, float):
-        if v != v:
-            return ".nan"
-        if v in (float("inf"), float("-inf")):
-            return ".inf" if v > 0 else "-.inf"
-        text = repr(v)
-        # YAML 1.1 reads an exponent without a dot as a string
-        if "e" in text and "." not in text:
-            text = text.replace("e", ".0e")
-        return text
-    s = str(v)
-    if _PLAIN.match(s) and parse_scalar(s) == s:
-        return s
-    return "'" + s.replace("'", "''") + "'"
-
-
-def _sequence_lines(items, indent: int) -> list[str]:
-    pad = " " * indent
-    if not items:
-        return [pad + "- []"]
-    out = []
-    for it in items:
-        if isinstance(it, (list, tuple)):
-            nested = _sequence_lines(it, indent + 2)
-            out.append(pad + "- " + nested[0].lstrip(" "))
-            out.extend(nested[1:])
-        else:
-            out.append(pad + "- " + _scalar_text(it))
-    return out
-
-
 def write_flat_yaml(path: str | Path, values: dict[str, Any]) -> None:
     """Write ``{key: scalar or (nested) sequence}`` with sorted keys, as
     ``yaml.safe_dump`` lays it out."""
-    lines = []
-    for key in sorted(values):
-        v = values[key]
-        if isinstance(v, (list, tuple)):
-            if not v:
-                lines.append(f"{key}: []")
-            else:
-                lines.append(f"{key}:")
-                lines.extend(_sequence_lines(v, 0))
+    Path(path).write_text(dump_yaml({k: values[k] for k in sorted(values)}))
+
+
+# ------------------------------------------------------------ config engine
+_INTERP = re.compile(r"\$\{([^${}]+)\}")
+JAX_PACKAGE, PORT_PACKAGE = "matinvent_tpu.", "matinvent_tpu_torch."
+
+
+def _deep_merge(base: dict, override: dict) -> dict:
+    out = dict(base)
+    for k, v in override.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = _deep_merge(out[k], v)
         else:
-            lines.append(f"{key}: {_scalar_text(v)}")
-    Path(path).write_text("\n".join(lines) + "\n")
+            out[k] = v
+    return out
+
+
+def _get_path(cfg: dict, path: str):
+    node: Any = cfg
+    for part in path.split("."):
+        if isinstance(node, dict) and part in node:
+            node = node[part]
+        elif isinstance(node, list) and part.lstrip("-").isdigit():
+            node = node[int(part)]
+        else:
+            raise KeyError(path)
+    return node
+
+
+def _set_path(cfg: dict, path: str, value: Any) -> None:
+    parts = path.split(".")
+    node = cfg
+    for part in parts[:-1]:
+        if isinstance(node, list) and part.lstrip("-").isdigit():
+            node = node[int(part)]
+        elif isinstance(node, dict):
+            node = node.setdefault(part, {})
+        else:
+            raise KeyError(f"cannot descend into {type(node).__name__} at {part!r} ({path})")
+    last = parts[-1]
+    if isinstance(node, list) and last.lstrip("-").isdigit():
+        node[int(last)] = value
+    else:
+        node[last] = value
+
+
+_CALC_NODES = (
+    ast.Expression, ast.BinOp, ast.UnaryOp, ast.Constant, ast.Add, ast.Sub,
+    ast.Mult, ast.Div, ast.FloorDiv, ast.Mod, ast.Pow, ast.USub, ast.UAdd,
+)
+
+
+def _safe_calc(expr: str) -> Any:
+    """The ``calc`` resolver: arithmetic on numbers only, no names or
+    calls."""
+    tree = ast.parse(expr, mode="eval")
+    for node in ast.walk(tree):
+        if not isinstance(node, _CALC_NODES):
+            raise ValueError(f"disallowed expression in calc resolver: {expr!r}")
+    return eval(compile(tree, "<calc>", "eval"))  # noqa: S307 - AST-validated
+
+
+def _resolve_value(val: str, root: dict):
+    """The interpolations of one string resolved; a string that is one
+    reference keeps the referenced value's type."""
+    m = _INTERP.fullmatch(val.strip())
+    if m:
+        return _resolve_token(m.group(1), root)
+    return _INTERP.sub(lambda match: str(_resolve_token(match.group(1), root)), val)
+
+
+def _resolve_token(token: str, root: dict):
+    if token.startswith("calc:"):
+        expr = token[len("calc:"):].strip()
+        if len(expr) >= 2 and expr[0] == expr[-1] and expr[0] in "'\"":
+            expr = expr[1:-1]
+        expr = _INTERP.sub(lambda m: str(_resolve_token(m.group(1), root)), expr)
+        return _safe_calc(expr)
+    node = _get_path(root, token)
+    return _resolve_value(node, root) if isinstance(node, str) and "${" in node else node
+
+
+def resolve_interpolations(cfg: dict) -> dict:
+    """Every ``${...}`` string of the tree resolved, to a fixed point."""
+
+    def walk(node: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if isinstance(node, str) and "${" in node:
+            out = _resolve_value(node, cfg)
+            return walk(out) if isinstance(out, (str, dict, list)) and out != node else out
+        return node
+
+    prev, current = None, cfg
+    for _ in range(10):
+        current = walk(current)
+        if current == prev:
+            break
+        prev = current
+    return current
+
+
+_SCI_FLOAT = re.compile(r"^[+-]?(\d+\.?\d*|\.\d+)[eE][+-]?\d+$")
+
+
+def _parse_override_value(raw: str) -> Any:
+    """An override's value as YAML, but an exponent without a dot
+    (``1e-4``, a string to YAML 1.1) as a float, as Hydra reads it."""
+    if _SCI_FLOAT.match(raw.strip()):
+        return float(raw)
+    try:
+        return load_yaml(raw)
+    except ValueError:
+        return raw
+
+
+def load_config(config_dir: str | Path, config_name: str = "base",
+                overrides: list[str] | None = None) -> dict:
+    """``<config_dir>/<config_name>.yaml`` with its ``defaults`` groups
+    loaded, the overrides applied and the interpolations resolved."""
+    cfg: dict = read_yaml(os.path.join(config_dir, f"{config_name}.yaml")) or {}
+    group_choice: dict[str, str] = {}
+    for entry in cfg.pop("defaults", []):
+        if isinstance(entry, dict):
+            group_choice.update({str(k): str(v) for k, v in entry.items()})
+
+    kv_overrides: list[tuple[str, Any]] = []
+    for ov in overrides or []:
+        body = ov[1:] if ov.startswith("+") else ov
+        if "=" not in body:
+            raise ValueError(f"override must be key=value: {ov}")
+        key, raw = body.split("=", 1)
+        if key in group_choice or ("." not in key and os.path.isdir(os.path.join(config_dir, key))):
+            group_choice[key] = raw
+        else:
+            kv_overrides.append((key, _parse_override_value(raw)))
+
+    for group, name in group_choice.items():
+        node = read_yaml(os.path.join(config_dir, group, f"{name}.yaml")) or {}
+        cfg[group] = _deep_merge(cfg.get(group) or {}, node)
+    for key, value in kv_overrides:
+        _set_path(cfg, key, value)
+    return resolve_interpolations(cfg)
+
+
+def _strip_objects(node: Any) -> Any:
+    if isinstance(node, dict):
+        return {k: _strip_objects(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_strip_objects(v) for v in node]
+    if isinstance(node, (str, int, float, bool)) or node is None:
+        return node
+    return repr(node)
+
+
+def save_config(cfg: dict, path: str | Path) -> None:
+    """``cfg`` as YAML that ``yaml.safe_load`` reads back to it (objects
+    written as their ``repr``)."""
+    Path(path).write_text(dump_yaml(_strip_objects(cfg)))
+
+
+def port_target(target: str) -> str:
+    """A JAX package's ``_target_`` as the port's dotted path."""
+    if target.startswith(JAX_PACKAGE):
+        return PORT_PACKAGE + target[len(JAX_PACKAGE):]
+    return target
+
+
+def port_targets(node: Any) -> Any:
+    """``node`` with every ``_target_`` mapped by ``port_target``."""
+    if isinstance(node, dict):
+        return {k: port_target(v) if k == "_target_" and isinstance(v, str) else port_targets(v)
+                for k, v in node.items()}
+    if isinstance(node, list):
+        return [port_targets(v) for v in node]
+    return node
+
+
+def locate(target: str):
+    """The object at a dotted path: the longest importable module prefix,
+    then attributes (so ``pkg.mod.Class.classmethod`` resolves)."""
+    parts = target.split(".")
+    module, split, import_err = None, 0, None
+    for split in range(len(parts) - 1, 0, -1):
+        try:
+            module = importlib.import_module(".".join(parts[:split]))
+            break
+        except ImportError as exc:
+            import_err = exc
+    if module is None:
+        raise ImportError(f"cannot locate {target!r}: {import_err}")
+    obj = module
+    for attr in parts[split:]:
+        try:
+            obj = getattr(obj, attr)
+        except AttributeError as exc:
+            raise ImportError(f"cannot locate {target!r}: {exc}") from exc
+    return obj
+
+
+def _takes_device(fn) -> bool:
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+    p = params.get("device")
+    return p is not None and p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)
+
+
+def instantiate(node: Any, device=None, _path: str = "", **extra):
+    """Objects built from the ``_target_`` nodes of ``node``, recursively
+    unless ``_recursive_: false``; ``device`` (when given) goes to every
+    target whose constructor takes one; ``extra`` to the top node's."""
+    if isinstance(node, list):
+        return [instantiate(v, device, f"{_path}.{i}".lstrip(".")) for i, v in enumerate(node)]
+    if not isinstance(node, dict):
+        return node
+    recursive = node.get("_recursive_", True)
+    kwargs = {
+        k: instantiate(v, device, f"{_path}.{k}".lstrip(".")) if recursive else v
+        for k, v in node.items() if k not in ("_target_", "_recursive_")
+    }
+    kwargs.update(extra)
+    if "_target_" not in node:
+        return kwargs
+    target = port_target(node["_target_"])
+    try:
+        cls = locate(target)
+    except ImportError as exc:
+        raise NotImplementedError(
+            f"{node['_target_']!r} (config node {_path or '<root>'!r}) is not ported to "
+            f"matinvent_tpu_torch: {exc}"
+        ) from exc
+    if device is not None and "device" not in kwargs and _takes_device(cls):
+        kwargs["device"] = device
+    return cls(**kwargs)
