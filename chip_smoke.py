@@ -91,6 +91,21 @@ launch counts set to 0 just before and read just after:
   plain net trains, so no edge kernel is launched (read and held at 0);
 * SynScore's trainer (phase ``syn_score_train``): one batched update of
   all 100 bags, card against CPU.
+* the ALIGNN reward (phase ``alignn``) at the published widths from random
+  weights written in the HF folder layout: card against CPU on 646
+  structures, the host graph build apart from the device forward at chunk
+  16 and 128, structures per second, peak memory, the NaN share, and one
+  ``main`` iteration with ``reward=band_gap_alignn`` (the edge kernel
+  against its plain version at that iteration's bucket shapes, a finite
+  band gap for every structure scored);
+* data parallel (phase ``dp``): the entry point in a child process that
+  joins a one-rank NCCL group from ``MATINVENT_COORDINATOR``; then two
+  ``gloo`` ranks on the card (``experiments/dp_check.py``) sampling their
+  rows of 64 DiffCSP and 64 MatterGen crystals at T=1000 and running one
+  MatterGen DDPO update, each gathered result against one process (the
+  recorded trajectories' first steps against the whole batch), each
+  rank's edge-kernel launches against its plan and the kernel against its
+  plain version at each rank's shapes.
 
 Kernel times are device times (CUDA graph replay, ``experiments/timing.py``).
 Each phase prints one JSON line (the harnesses print their own records
@@ -111,6 +126,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -132,7 +148,7 @@ from matinvent_tpu_torch.chem.relax import SoftSphereRelaxer
 from matinvent_tpu_torch.chem.structure import Structure, read_extxyz
 from matinvent_tpu_torch.chem.validity import cell_size_ok, smact_valid, structure_validity
 from matinvent_tpu_torch.csrc.build import build, build_host
-from matinvent_tpu_torch.experiments import fused_edge_ab, fused_edge_flat
+from matinvent_tpu_torch.experiments import dp_check, fused_edge_ab, fused_edge_flat
 from matinvent_tpu_torch.experiments.phonon_check import phonon_pair, rocksalt
 from matinvent_tpu_torch.experiments.rl_profile import chunk_inputs, net_flops
 from matinvent_tpu_torch.experiments.timing import (
@@ -151,15 +167,21 @@ from matinvent_tpu_torch.models.diffcsp import NoiseDraws as CSPNoiseDraws
 from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
 from matinvent_tpu_torch.models.sample import DiffCSPSampler, batch_to_structures
 from matinvent_tpu_torch.models.suite.diffcsp import DiffCSPSuite
+from matinvent_tpu_torch.models.suite.mattergen import load_config as mattergen_config
 from matinvent_tpu_torch.models.suite.mattergen import load_model
 from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain, fused_edge_chain_plain
 from matinvent_tpu_torch.parallel.pretrain import PretrainTrainer, structures_to_batches
+from matinvent_tpu_torch.parallel.mesh import Mesh
 from matinvent_tpu_torch.parallel.train import FinetuneStep
 from matinvent_tpu_torch.parallel.train_predictor import PredictorTrainer, labeled_batches
 from matinvent_tpu_torch.pipeline import mat_invent
 from matinvent_tpu_torch.pipeline.baseline import Baseline
 from matinvent_tpu_torch.pipeline.filters import OptEval, ReferenceDataset
 from matinvent_tpu_torch.rewards.calculators import PropertyPredictor, SynScore
+from matinvent_tpu_torch.rewards.calculators.alignn import ALIGNN, ALIGNNModel, ALIGNNSpec
+from matinvent_tpu_torch.rewards.calculators.alignn.calc import usable as alignn_usable
+from matinvent_tpu_torch.rewards.calculators.alignn.graphs import build_batch as alignn_build_batch
+from matinvent_tpu_torch.rewards.calculators.alignn.model import run_batch as alignn_run_batch
 from matinvent_tpu_torch.rewards.calculators.mlip import MLIPBridge
 from matinvent_tpu_torch.rewards.calculators.predictor import TASK_MODEL_DICT, PropertyGNN
 from matinvent_tpu_torch.tools import pretrain as pretrain_tool
@@ -231,6 +253,28 @@ PRETRAIN_READ = 2000  # corpus structures read for the card-vs-CPU steps
 PRETRAIN_SAMPLES = 16
 # SynScore's trainer: all 100 bags, SYN_STEPS steps card vs CPU, then timed
 SYN_BAGS, SYN_N, SYN_STEPS, SYN_TIMED, SYN_LR = 100, 2000, 5, 20, 3e-3
+# phase alignn: corpus structures beside phase predictor's 134; card vs CPU
+# (both f32, TF32 off; the sums' order differs: atomics on the card) within
+# 1e-4 of the output's scale, phase predictor's tolerance
+ALIGNN_CORPUS, ALIGNN_TOL = 512, 1e-4
+ALIGNN_CPU = 256  # the structures the CPU also scores (the record's 134 first)
+# phase dp: two gloo ranks on one card, 64 crystals each family; the DDPO
+# update at the DDPO recipe's lr, its weights within 1e-6 of the model's
+# weight scale of one process's (the CPU test's bound)
+DP_RANKS, DP_BATCH, DP_MAX_ATOMS, DP_SEED, DP_LR, DP_UPDATE_TOL = 2, 64, 8, 0, 3e-5, 1e-6
+DP_CHUNK = 50  # transitions per DDPO step, the DDPO recipes'
+# the ranks' gathered samples against their blocks sampled in turn in one
+# process: the same computation at the same shapes
+DP_SAME_TOL = 1e-6
+# the ranks' gathered trajectories against one process's whole batch over
+# the chain's first DP_PREFIX steps (2 score-net evaluations each), before
+# the T=1000 chain amplifies the GEMMs' rounding at other row counts: the
+# score net's card tolerance (NET_TOL), 100 times the per-evaluation gap of
+# a rank's rows against the whole batch (2e-6 of scale, _dp_net_parity);
+# DiffCSP's lattice and type logits times the gain its schedule gives them
+# over those steps (_diffcsp_gain: 1,000 under the cosine schedule)
+DP_PREFIX, DP_PREFIX_TOL = 10, 2e-4
+DIFFCSP_GAINED = ("lattices", "next_lattices", "atom_types", "next_atom_types")
 DEV = "cuda"
 BATCH, BUCKETS, MAX_ATOMS, SEED = 256, 4, 20, 0
 SOURCES = ("fused_edge", "edge_flat")  # csrc/<name>.cu
@@ -1656,20 +1700,26 @@ def phase_knn() -> dict:
 
 
 class SampleCalls:
-    """Counts the buckets of every MatterGen sampling call while active
+    """Records the buckets of every MatterGen sampling call while active
     (``sample`` samples one padded batch, ``sample_bucketed`` one per
-    cap): the plan the edge kernel's launches follow."""
+    cap), each as (atom counts, cap): ``plans``, the plan the edge kernel's
+    launches follow and the shapes they take."""
 
     def __enter__(self):
-        self.buckets = 0
+        self.plans = []
         self._orig = sample, bucketed = MatterGenDiffusion.sample, MatterGenDiffusion.sample_bucketed
 
-        def counted(model, *args, **kwargs):
-            self.buckets += 1
-            return sample(model, *args, **kwargs)
+        def plan(na, cap):
+            cap = 20 if cap is None else int(cap)  # sample's default cap
+            self.plans.append((np.minimum(torch.as_tensor(na).cpu().numpy(), cap), cap))
+
+        def counted(model, noise, num_atoms, *args, **kwargs):
+            plan(num_atoms, args[0] if args else kwargs.get("max_atoms"))
+            return sample(model, noise, num_atoms, *args, **kwargs)
 
         def counted_bucketed(model, gen, na_buckets, caps, *args, **kwargs):
-            self.buckets += len(caps)
+            for na, cap in zip(na_buckets, caps):
+                plan(na, cap)
             return bucketed(model, gen, na_buckets, caps, *args, **kwargs)
 
         MatterGenDiffusion.sample, MatterGenDiffusion.sample_bucketed = counted, counted_bucketed
@@ -1687,8 +1737,8 @@ def _per_bucket(model) -> int:
 def _drive(fn, cwd_back: str):
     """``fn()`` (an entry point) with the launch count set to 0 just before
     and read just after, the pipeline's log captured and the working
-    directory restored; (result, launches, planned buckets, seconds,
-    messages)."""
+    directory restored; (result, launches, planned buckets as (atom counts,
+    cap), seconds, messages)."""
     def run(log):
         torch.cuda.synchronize()
         fused_edge_chain.launches = 0
@@ -1697,7 +1747,7 @@ def _drive(fn, cwd_back: str):
             out = fn()
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t
-        return out, fused_edge_chain.launches, calls.buckets, seconds, list(log.messages)
+        return out, fused_edge_chain.launches, calls.plans, seconds, list(log.messages)
 
     try:
         return _run_logged(run)
@@ -1705,11 +1755,11 @@ def _drive(fn, cwd_back: str):
         os.chdir(cwd_back)
 
 
-def _check_launches(name: str, launches: int, buckets: int, model) -> int:
-    expected = buckets * _per_bucket(model)
+def _check_launches(name: str, launches: int, plans: list, model) -> int:
+    expected = len(plans) * _per_bucket(model)
     if launches != expected or launches == 0:
         raise AssertionError(f"{name}: {launches} edge-kernel launches, the bucket plan "
-                             f"({buckets} buckets) gives {expected}")
+                             f"({len(plans)} buckets) gives {expected}")
     return expected
 
 
@@ -1724,7 +1774,7 @@ def phase_main() -> dict:
     t0 = time.perf_counter()
     out = tempfile.mkdtemp(prefix="chip_smoke_main_")
     try:
-        pipe, launches, buckets, seconds, messages = _drive(
+        pipe, launches, plans, seconds, messages = _drive(
             lambda: entry_main.main([*MAIN_ARGS, f"results_dir={out}", "expname=main"]),
             os.getcwd())
         run = Path(out) / "main"
@@ -1732,7 +1782,7 @@ def phase_main() -> dict:
             raise AssertionError(f"main built {type(pipe).__name__} on {pipe.agent.device}")
         if type(pipe.filter.matcher).__name__ != "DisorderedStructureMatcher":
             raise AssertionError(f"the base filter's matcher is {pipe.filter.matcher!r}")
-        expected = _check_launches("main", launches, buckets, pipe.agent)
+        expected = _check_launches("main", launches, plans, pipe.agent)
         hp = read_yaml(run / "hparams.yaml")
         if hp["model"]["_target_"] != "matinvent_tpu_torch.models.suite.mattergen.MatterGenSuite":
             raise AssertionError(f"hparams.yaml model target {hp['model']['_target_']}")
@@ -1754,7 +1804,7 @@ def phase_main() -> dict:
     finally:
         shutil.rmtree(out, ignore_errors=True)
     rec = dict(phase="main", args=MAIN_ARGS, kernel_launches=launches, expected_launches=expected,
-               buckets=buckets, valid=valid, filtered=filtered, reward_mean=row.get("reward mean"),
+               buckets=len(plans), valid=valid, filtered=filtered, reward_mean=row.get("reward mean"),
                finetune_losses=losses, seconds_run=seconds,
                **{k: row.get(k) for k in ("time_sample_s", "time_score_s", "time_finetune_s")},
                seconds=time.perf_counter() - t0)
@@ -1769,13 +1819,13 @@ def phase_baseline() -> dict:
     t0 = time.perf_counter()
     out = tempfile.mkdtemp(prefix="chip_smoke_baseline_")
     try:
-        pipe, launches, buckets, seconds, messages = _drive(
+        pipe, launches, plans, seconds, messages = _drive(
             lambda: entry_main.main([*MAIN_ARGS, "pipeline=baseline", f"results_dir={out}",
                                      "expname=baseline"]), os.getcwd())
         run = Path(out) / "baseline"
         if not isinstance(pipe, Baseline):
             raise AssertionError(f"pipeline=baseline built {type(pipe).__name__}")
-        expected = _check_launches("baseline", launches, buckets, pipe.agent)
+        expected = _check_launches("baseline", launches, plans, pipe.agent)
         start = load_model(START, device=DEV)
         if any(not torch.equal(v, pipe.agent.state_dict()[k]) for k, v in start.state_dict().items()):
             raise AssertionError("Baseline changed the agent's weights")
@@ -1785,7 +1835,7 @@ def phase_baseline() -> dict:
     finally:
         shutil.rmtree(out, ignore_errors=True)
     rec = dict(phase="baseline", kernel_launches=launches, expected_launches=expected,
-               buckets=buckets, reward_mean=row.get("reward mean"), crystal_num=row.get("crystal_num"),
+               buckets=len(plans), reward_mean=row.get("reward mean"), crystal_num=row.get("crystal_num"),
                seconds_run=seconds, seconds=time.perf_counter() - t0)
     emit(rec)
     return rec
@@ -1805,9 +1855,9 @@ def phase_gen_eval() -> dict:
                 f"batch_size={GEN_EVAL_BATCH}", f"num_batches={GEN_EVAL_BATCHES}",
                 f"reference_path={CORPUS}", f"reference_energies={CORPUS_ENERGIES}", "relax=true",
                 f"num_atoms_from={CORPUS}", "structure_matcher=disordered,ordered"]
-        metrics, launches, buckets, seconds, _ = _drive(lambda: entry_gen_eval.main(args),
+        metrics, launches, plans, seconds, _ = _drive(lambda: entry_gen_eval.main(args),
                                                         os.getcwd())
-        expected = _check_launches("gen_eval", launches, buckets, load_model(START, device="cpu"))
+        expected = _check_launches("gen_eval", launches, plans, load_model(START, device="cpu"))
         with open(GEN_EVAL_RECORD) as fh:
             record = json.load(fh)
         if set(metrics) != set(record) or set(metrics["by_matcher"]) != set(record["by_matcher"]):
@@ -1822,7 +1872,7 @@ def phase_gen_eval() -> dict:
     finally:
         shutil.rmtree(out, ignore_errors=True)
     rec = dict(phase="gen_eval", metrics=metrics, kernel_launches=launches,
-               expected_launches=expected, buckets=buckets, seconds_run=seconds,
+               expected_launches=expected, buckets=len(plans), seconds_run=seconds,
                seconds=time.perf_counter() - t0)
     emit(rec)
     return rec
@@ -2015,6 +2065,453 @@ def phase_syn_score_train() -> dict:
     return rec
 
 
+def alignn_state_dict(spec: ALIGNNSpec, rng: np.random.Generator) -> dict:
+    """Random weights of an ALIGNNAtomWise at ``spec``'s widths under the
+    published state-dict names, BatchNorm running statistics included:
+    linear weights N(0, 1/fan_in), as an initialized net scales them."""
+    sd = {}
+
+    def lin(name, nin, nout):
+        sd[f"{name}.weight"] = torch.from_numpy(
+            rng.normal(0, nin ** -0.5, (nout, nin)).astype(np.float32))
+        sd[f"{name}.bias"] = torch.from_numpy(rng.normal(0, 0.01, nout).astype(np.float32))
+
+    def bn(name, n):
+        sd[f"{name}.weight"] = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+        sd[f"{name}.bias"] = torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32))
+        sd[f"{name}.running_mean"] = torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32))
+        sd[f"{name}.running_var"] = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(1000)
+
+    def mlp(name, nin, nout):
+        lin(f"{name}.layer.0", nin, nout)
+        bn(f"{name}.layer.1", nout)
+
+    H, E = spec.hidden_features, spec.embedding_features
+    mlp("atom_embedding", spec.atom_input_features, H)
+    sd["edge_embedding.0.centers"] = torch.linspace(0, 8, spec.edge_input_features)
+    mlp("edge_embedding.1", spec.edge_input_features, E)
+    mlp("edge_embedding.2", E, H)
+    sd["angle_embedding.0.centers"] = torch.linspace(-1, 1, spec.triplet_input_features)
+    mlp("angle_embedding.1", spec.triplet_input_features, E)
+    mlp("angle_embedding.2", E, H)
+    convs = [f"alignn_layers.{i}.{part}" for i in range(spec.alignn_layers)
+             for part in ("node_update", "edge_update")]
+    convs += [f"gcn_layers.{i}" for i in range(spec.gcn_layers)]
+    for prefix in convs:
+        for part in ("src_gate", "dst_gate", "edge_gate", "src_update", "dst_update"):
+            lin(f"{prefix}.{part}", H, H)
+        bn(f"{prefix}.bn_edges", H)
+        bn(f"{prefix}.bn_nodes", H)
+    lin("fc", H, spec.output_features)
+    return sd
+
+
+def write_alignn_folder(root: Path, seed: int = 0) -> Path:
+    """An HF-layout ALIGNN model folder under ``root`` at the published
+    widths (``ALIGNNSpec``'s defaults, ALIGNNAtomWise's), weights and a
+    binary 92-feature atom table drawn from ``seed``: ``prop_pred/alignn/
+    band_gap/{config.json, best_model.pt}`` and ``atom_init.json`` beside
+    it; returns ``root``."""
+    rng = np.random.default_rng(seed)
+    spec = ALIGNNSpec()
+    d = root / "prop_pred" / "alignn" / "band_gap"
+    d.mkdir(parents=True, exist_ok=True)
+    torch.save(alignn_state_dict(spec, rng), str(d / "best_model.pt"))
+    cfg = {k: getattr(spec, k) for k in (
+        "alignn_layers", "gcn_layers", "atom_input_features", "edge_input_features",
+        "triplet_input_features", "embedding_features", "hidden_features",
+        "output_features", "link", "classification")}
+    (d / "config.json").write_text(json.dumps({"model": dict(name="alignn_atomwise", **cfg)}))
+    table = {str(z): rng.integers(0, 2, spec.atom_input_features).astype(float).tolist()
+             for z in range(1, 101)}
+    (d / "atom_init.json").write_text(json.dumps(table))
+    return root
+
+
+def phase_alignn() -> dict:
+    """The ALIGNN calculator at the published widths (4 ALIGNN and 4 GCN
+    layers, hidden 256, BatchNorm) from random weights written in the HF
+    folder layout in a temporary directory and read by ``alignn/load.py``:
+    on phase ``predictor``'s 134 structures and ``ALIGNN_CORPUS`` corpus
+    structures of up to 20 atoms, the card against the CPU on the first
+    ``ALIGNN_CPU`` (the largest gap over the output's scale, ``ALIGNN_TOL``,
+    same NaN entries); the host
+    graph build's seconds per structure apart from the device forward's ms
+    per chunk at ``chunk_size`` 16 and 128; structures per second through
+    the calculator; peak device memory; the NaN share. Then one ``main``
+    iteration with ``reward=band_gap_alignn`` on that folder: launches
+    equal to the sampler's plan, the edge kernel against its plain version
+    at the plan's shapes, the ``band_gap`` checkpoint loaded and a finite
+    band gap for every structure it scored (their count and spread), a
+    finite reward, ``time_score_s``."""
+    t0 = time.perf_counter()
+    folder = write_alignn_folder(Path(tempfile.mkdtemp(prefix="chip_smoke_alignn_model_")))
+    try:
+        with open(REWARD_RECORD) as fh:
+            strucs = record_structures(json.load(fh))
+        corpus = [x for x in read_extxyz(str(CORPUS), limit=4 * ALIGNN_CORPUS) if x.num_atoms <= 20]
+        strucs += corpus[:ALIGNN_CORPUS]
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_alignn_")
+        calc = ALIGNN(tmp, task="band_gap", model_dir=str(folder), device=DEV)
+        t1 = time.perf_counter()
+        model = calc._model("band_gap")
+        torch.cuda.synchronize()
+        load_seconds = time.perf_counter() - t1
+        card = torch.device(DEV).type
+        if model.spec != ALIGNNSpec() or model.atom_table.device.type != card or \
+                any(v.device.type != card for v in model.params.values()):
+            raise AssertionError(f"ALIGNN loaded as {model.spec} on {model.atom_table.device}")
+        cpu = ALIGNNModel(str(folder / "prop_pred/alignn/band_gap"), device="cpu")
+        card_out = model.predict(strucs)[:ALIGNN_CPU]
+        cpu_out = cpu.predict(strucs[:ALIGNN_CPU])
+        if not np.array_equal(np.isnan(card_out), np.isnan(cpu_out)):
+            raise AssertionError("ALIGNN: NaN entries differ between the card and the CPU")
+        fin = np.isfinite(cpu_out)
+        scale = float(np.abs(cpu_out[fin]).max())
+        gap = float(np.abs(card_out[fin] - cpu_out[fin]).max()) / scale
+        if not fin.any() or gap > ALIGNN_TOL:
+            raise AssertionError(f"ALIGNN card vs CPU {gap} of scale > {ALIGNN_TOL}")
+        ok = [x for x in strucs if alignn_usable(x)]
+        split = {}
+        for chunk in (16, 128):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            host_s, fwd_ms, sizes = 0.0, [], []
+            for lo in range(0, len(ok), chunk):
+                t = time.perf_counter()
+                batch = alignn_build_batch(ok[lo: lo + chunk])
+                host_s += time.perf_counter() - t
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                alignn_run_batch(model.params, model.spec, model.atom_table, batch)
+                torch.cuda.synchronize()
+                fwd_ms.append(1e3 * (time.perf_counter() - t))
+                sizes.append(list(batch.padded_sizes))
+            split[chunk] = dict(host_graph_s_per_structure=host_s / len(ok),
+                                forward_ms_per_chunk=float(np.median(fwd_ms)),
+                                forward_ms_first_chunk=fwd_ms[0], chunks=len(fwd_ms),
+                                largest_padded_sizes=max(sizes, key=lambda z: z[2]),
+                                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vals = calc.calc((strucs, None), "t")
+        torch.cuda.synchronize()
+        calc_seconds = time.perf_counter() - t
+        shutil.rmtree(tmp, ignore_errors=True)
+
+        out = tempfile.mkdtemp(prefix="chip_smoke_alignn_main_")
+        try:
+            args = [*(a for a in MAIN_ARGS if not a.startswith("reward=")), "reward=band_gap_alignn",
+                    f"reward.prop_cfg.0.calculator.model_dir={folder}",
+                    f"results_dir={out}", "expname=alignn"]
+            # the band gaps the calculator predicts in the iteration
+            predicted, predict = [], ALIGNNModel.predict
+
+            def recorded(self, structures):
+                vals = predict(self, structures)
+                predicted.append(vals)
+                return vals
+
+            ALIGNNModel.predict = recorded
+            try:
+                pipe, launches, plans, seconds, _ = _drive(lambda: entry_main.main(args),
+                                                           os.getcwd())
+            finally:
+                ALIGNNModel.predict = predict
+            expected = _check_launches("alignn main", launches, plans, pipe.agent)
+            c = pipe.agent.config
+            kernel = check_path_kernel(plans, c.hidden_dim, c.num_freqs)
+            calc_main = pipe.reward.prop_cfg[0]["calculator"]
+            if type(calc_main).__name__ != "ALIGNN" or calc_main.device.type != card:
+                raise AssertionError(f"main's reward calculator {calc_main!r}")
+            gaps = np.concatenate(predicted) if predicted else np.zeros(0)
+            if set(calc_main._models) != {"band_gap"} or \
+                    calc_main._models["band_gap"].spec != ALIGNNSpec() or not len(gaps) or \
+                    not np.isfinite(gaps).all():
+                raise AssertionError(f"alignn main: models {sorted(calc_main._models)}, "
+                                     f"band gaps {gaps}")
+            row = pipe.logger.rows[-1]
+            if not math.isfinite(float(row.get("reward mean", "nan"))):
+                raise AssertionError(f"alignn main: reward mean {row.get('reward mean')}")
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    rec = dict(phase="alignn", spec=ALIGNNSpec().__dict__, structures=len(strucs),
+               load_seconds=load_seconds, card_vs_cpu_of_scale=gap, tol=ALIGNN_TOL,
+               compared_with_cpu=ALIGNN_CPU,
+               output_scale=scale, split=split,
+               structures_per_s=len(strucs) / calc_seconds, calc_seconds=calc_seconds,
+               nan_share=float(np.isnan(vals).mean()),
+               main=dict(kernel_launches=launches, expected_launches=expected, buckets=len(plans),
+                         kernel_vs_plain=kernel, scored=len(gaps),
+                         band_gap=dict(min=float(gaps.min()), max=float(gaps.max()),
+                                       mean=float(gaps.mean()), std=float(gaps.std())),
+                         reward_mean=row.get("reward mean"), seconds_run=seconds,
+                         **{k: row.get(k) for k in ("time_sample_s", "time_score_s",
+                                                    "time_finetune_s")}),
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _batch_gap(got: dict, want: dict) -> dict:
+    """Atom-type flips (crystals whose types differ) and, over the other
+    crystals, the largest coordinate (circular) and lattice gaps over the
+    lattice's scale."""
+    for k in ("frac_coords", "lattice"):
+        if not (torch.isfinite(got[k]).all() and torch.isfinite(want[k]).all()):
+            raise AssertionError(f"non-finite {k} in the data-parallel comparison")
+    if not torch.equal(got["num_atoms"].long(), want["num_atoms"].long()):
+        raise AssertionError("the gathered atom counts differ from one process's")
+    flips = (got["atom_types"] != want["atom_types"]).any(dim=1)
+    same = ~flips
+    d = (got["frac_coords"] - want["frac_coords"]).abs()
+    coords = float(torch.minimum(d, 1 - d)[same].max()) if same.any() else 0.0
+    scale = float(want["lattice"].abs().max())
+    lat = float((got["lattice"] - want["lattice"]).abs()[same].max()) / scale if same.any() else 0.0
+    return dict(type_flips=[int(i) for i in torch.nonzero(flips).flatten()], coords=coords,
+                lattice_of_scale=lat)
+
+
+def _traj_prefix_gap(got: dict, want: dict, steps: int) -> dict:
+    """Over a recorded trajectory's first ``steps`` steps, the largest gap
+    of each state (log-probs and step indices aside) over its scale,
+    coordinates circular, and the count of differing integer entries
+    (atom types)."""
+    out = {}
+    for k, v in want.items():
+        if k.startswith("log_prob") or k in ("step", "timestep"):
+            continue
+        a, b = got[k][:steps], v[:steps]
+        if not v.is_floating_point():
+            out[k] = int((a != b).sum())
+            continue
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"non-finite {k} in the trajectory comparison")
+        d = (a.double() - b.double()).abs()
+        if "pos" in k or "frac_coords" in k:
+            d = torch.minimum(d, 1 - d)
+        out[k] = float(d.max()) / max(float(b.abs().max()), 1e-12)
+    return out
+
+
+def _diffcsp_gain(steps: int) -> float:
+    """The gain of the DiffCSP checkpoint's chain on its lattice and type
+    logits over its first ``steps`` steps: the product of each ancestral
+    step's mean factor ``c0 = 1 / sqrt(alpha_t)`` (100 at t = T under the
+    cosine schedule, then about (T - t + 1) / (T - t))."""
+    model = DiffCSPSuite(model_path=str(DIFFCSP_CKPT), device="cpu").load_model()
+    T = model.config.timesteps
+    return math.prod(float(model._coefs(torch.tensor([T - i]), 1.0)["c0"].reshape(-1)[0])
+                     for i in range(steps))
+
+
+def _dp_net_parity() -> dict:
+    """Each score net (DiffCSP; MatterGen plain and through the kernel) on
+    ``DP_BATCH`` random rows against the same net on each rank's block of
+    them: the per-evaluation gap that other GEMM shapes leave, within
+    ``NET_TOL`` of the output's scale."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    B, A = DP_BATCH, DP_MAX_ATOMS
+    na = torch.randint(1, A + 1, (B,), generator=gen, device=DEV)
+    mask = torch.arange(A, device=DEV)[None, :] < na[:, None]
+    csp = DiffCSPSuite(model_path=str(DIFFCSP_CKPT), device=DEV).load_model()
+    mg = load_model(MG_T1000, device=DEV)
+    c = csp.config
+    csp_in = NoisedInput(
+        sinusoidal_time_embedding(torch.randint(1, c.timesteps + 1, (B,), generator=gen,
+                                                device=DEV), c.time_dim),
+        torch.randn((B, A, c.max_atomic_num), generator=gen, device=DEV),
+        torch.rand((B, A, 3), generator=gen, device=DEV),
+        torch.eye(3, device=DEV)[None] * 5.0 + torch.randn((B, 3, 3), generator=gen, device=DEV))
+    tables = mg._step_tables()
+    i = mg.config.timesteps // 2
+    mg_in = MGNoised(tables["t"][i].expand(B), tables["time_emb"][i][None].expand(B, -1),
+                     torch.randint(0, mg.d3pm.vocab, (B, A), generator=gen, device=DEV),
+                     torch.rand((B, A, 3), generator=gen, device=DEV),
+                     torch.eye(3, device=DEV)[None] * 4.0
+                     + 0.3 * torch.randn((B, 3, 3), generator=gen, device=DEV))
+    nets = {
+        "diffcsp": lambda x, n, m: dict(zip("lxt", csp.apply_net(x, n, m))),
+        "mattergen_plain": lambda x, n, m: mg.apply_net(x, n, m, fused_edge=False),
+        "mattergen_kernel": lambda x, n, m: mg.apply_net(x, n, m, fused_edge=True),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, net in nets.items():
+            x = csp_in if name == "diffcsp" else mg_in
+            whole = net(x, na, mask)
+            worst = 0.0
+            for r in range(DP_RANKS):
+                rows = Mesh(size=DP_RANKS, rank=r, device=torch.device(DEV)).rows(B)
+                part = net(type(x)(*(v[rows] for v in x)), na[rows], mask[rows])
+                for k, v in whole.items():
+                    scale = max(float(v.abs().max()), 1e-12)
+                    worst = max(worst, float((part[k] - v[rows]).abs().max()) / scale)
+            if worst > NET_TOL:
+                raise AssertionError(f"dp {name}: rows vs the whole batch {worst} of scale")
+            out[name] = worst
+    return out
+
+
+def phase_dp() -> dict:
+    """Data parallel. (a) ``python -m matinvent_tpu_torch.main`` as phase
+    ``main`` runs it, in a child process that joins a one-rank NCCL group
+    from ``MATINVENT_COORDINATOR`` / ``_NUM_PROCESSES`` / ``_PROCESS_ID``.
+    (b) Two ranks on the one card over ``gloo`` (NCCL refuses two ranks on
+    one device), ``experiments/dp_check.py``: a recorded DiffCSP sample (the
+    DiffCSP checkpoint) and MatterGen samples (``pretrained_mattergen_t1000``,
+    one through the edge kernel, one recorded) of ``DP_BATCH`` crystals at
+    T=1000, each rank sampling its rows, gathered and held against the same
+    run in this process. The ranks' blocks sampled in turn in this process
+    (the same shapes) hold them within ``DP_SAME_TOL`` of scale and with
+    no type flip. Against the whole batch at once in this process: every
+    row's draws equal, exactly (``dp_check.DrawSums``' checksums); the
+    recorded trajectories' first ``DP_PREFIX`` steps within
+    ``DP_PREFIX_TOL`` of scale (DiffCSP's lattice and type logits times
+    their gain over those steps, ``_diffcsp_gain``) with no type flip; the
+    final samples are reported beside, with their type flips named: the
+    card's GEMMs round a row differently at twice the rows, and the T=1000
+    chain amplifies that. The per-evaluation gap is held
+    too (``_dp_net_parity``: each score net on a rank's rows against the
+    whole batch, within ``NET_TOL`` of scale). Each rank's edge-kernel
+    launches equal its plan, and the kernel is held against its plain
+    version at each rank's shapes; one MatterGen DDPO update of the
+    recorded trajectory over the two ranks against this process's, the
+    weights within ``DP_UPDATE_TOL`` of the model's weight scale."""
+    t0 = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    procs = []
+    try:
+        env = dict(os.environ, MATINVENT_COORDINATOR=f"127.0.0.1:{_free_port()}",
+                   MATINVENT_NUM_PROCESSES="1", MATINVENT_PROCESS_ID="0")
+        t = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "matinvent_tpu_torch.main", *MAIN_ARGS,
+             f"results_dir={out}", "expname=dp_main"],
+            env=env, cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+        main_seconds = time.perf_counter() - t
+        log = child.stdout + child.stderr
+        if child.returncode != 0 or "backend nccl" not in log:
+            raise AssertionError(f"dp main: exit {child.returncode}\n{log[-3000:]}")
+        rows = (out / "dp_main" / "metrics.csv").read_text().splitlines()
+        if len(rows) != 2 or not (out / "dp_main" / "models" / "final").is_dir():
+            raise AssertionError(f"dp main wrote {rows}")
+        joined = [ln for ln in log.splitlines() if "joined the process group" in ln]
+
+        rng = np.random.default_rng(DP_SEED)
+        mg_na = [int(v) for v in rng.integers(1, DP_MAX_ATOMS + 1, DP_BATCH)]
+        rewards = rng.random(DP_BATCH).tolist()
+        mg = {"family": "mattergen", "path": str(MG_T1000)}
+        ddpo = dict(kind="ddpo", name="ddpo", model=mg, max_atoms=DP_MAX_ATOMS, rewards=rewards,
+                    lr=DP_LR, chunk=DP_CHUNK, epochs=1, max_grad_norm=1.0)
+        tasks = [
+            dict(kind="diffcsp_sample", name="diffcsp",
+                 model={"family": "diffcsp", "path": str(DIFFCSP_CKPT),
+                        "overrides": {"sample_clip": DIFFCSP_CLIP}},
+                 batch=DP_BATCH, max_atoms=DIFFCSP_MAX_ATOMS, step_lr=None, seed=DP_SEED,
+                 record=True, traj_steps=DP_PREFIX, draws=True),
+            dict(kind="mattergen_sample", name="mattergen", model=mg, num_atoms=mg_na,
+                 max_atoms=DP_MAX_ATOMS, seed=DP_SEED, draws=True),
+            dict(kind="mattergen_sample", name="recorded", model=mg, num_atoms=mg_na,
+                 max_atoms=DP_MAX_ATOMS, seed=DP_SEED + 1, record=True, draws=True),
+            dict(ddpo, traj_from="recorded"),
+        ]
+        job = {"device": "cuda", "backend": "gloo", "out": str(out / "ranks"), "tasks": tasks}
+        (out / "job.json").write_text(json.dumps(job))
+        t = time.perf_counter()
+        procs = dp_check.start(out / "job.json", DP_RANKS, _free_port())
+        # while the ranks run: the ranks' blocks in turn in this process, and
+        # the whole batch in this process
+        blocks = [dp_check.run_job(
+            {**job, "out": str(out / f"block{r}"), "tasks": [dict(k, gather=False) for k in tasks[:3]]},
+            Mesh(size=DP_RANKS, rank=r, device=torch.device(DEV))) for r in range(DP_RANKS)]
+        ref = dp_check.run_job({**job, "out": str(out / "one"), "tasks": tasks[:3]})
+        done = dp_check.wait(procs, timeout=900)
+        ranks_seconds = time.perf_counter() - t
+        for r, p in enumerate(done):
+            if p.returncode != 0:
+                raise AssertionError(f"dp rank {r}: exit {p.returncode}\n{p.stdout[-3000:]}")
+        ranks = [{k["name"]: torch.load(str(out / "ranks" / f"{k['name']}.rank{r}.pt"),
+                                        weights_only=True) for k in tasks}
+                 for r in range(DP_RANKS)]
+        # the DDPO update of the trajectory the ranks recorded, in this process
+        ref.update(dp_check.run_job({**job, "out": str(out / "one"), "tasks": [
+            dict(ddpo, traj=str(out / "ranks" / "recorded.rank0.pt"))]}))
+        gaps, whole, prefix, draws, launches = {}, {}, {}, {}, []
+        gain = _diffcsp_gain(DP_PREFIX)
+        for name in ("diffcsp", "mattergen", "recorded"):
+            serial = {k: torch.cat([b[name]["batch"][k] for b in blocks])
+                      for k in ref[name]["batch"]}
+            gaps[name] = _batch_gap(ranks[0][name]["batch"], serial)
+            if gaps[name]["coords"] > DP_SAME_TOL or gaps[name]["lattice_of_scale"] > DP_SAME_TOL \
+                    or gaps[name]["type_flips"]:
+                raise AssertionError(f"dp {name}: gathered vs the blocks in one process {gaps[name]}")
+            # the whole batch at once: the same draws, other GEMM shapes.
+            # Every row drew what it draws there, exactly
+            got, want = ranks[0][name]["draws"], ref[name]["draws"]
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"dp {name}: the ranks' draws differ from the whole batch's")
+            draws[name] = list(want.shape)
+            whole[name] = _batch_gap(ranks[0][name]["batch"], ref[name]["batch"])
+            if "traj" in ref[name]:
+                prefix[name] = _traj_prefix_gap(ranks[0][name]["traj"], ref[name]["traj"],
+                                                DP_PREFIX)
+                if any(v > (0 if isinstance(v, int) else
+                            DP_PREFIX_TOL * (gain if k in DIFFCSP_GAINED else 1.0))
+                       for k, v in prefix[name].items()):
+                    raise AssertionError(f"dp {name}: the first {DP_PREFIX} steps against the "
+                                         f"whole batch in one process {prefix[name]}")
+        net = _dp_net_parity()
+        # the edge kernel against its plain version at each rank's shapes
+        c = mattergen_config(MG_T1000)
+        rank_rows = [Mesh(size=DP_RANKS, rank=r, device=torch.device(DEV)).rows(DP_BATCH)
+                     for r in range(DP_RANKS)]
+        kernel = check_path_kernel([(np.asarray(mg_na)[rows], DP_MAX_ATOMS) for rows in rank_rows],
+                                   c.hidden_dim, c.num_freqs)
+        for r in range(DP_RANKS):
+            k = ranks[r]["mattergen"]
+            if k["launches"] != k["plan"] or k["launches"] == 0:
+                raise AssertionError(f"dp rank {r}: {k['launches']} launches, plan {k['plan']}")
+            launches.append(k["launches"])
+        want = ref["ddpo"]["state"]
+        scale = max(float(v.abs().max()) for v in want.values() if v.is_floating_point())
+        update_gap = max(float((ranks[r]["ddpo"]["state"][k].double() - v.double()).abs().max())
+                         for r in range(DP_RANKS) for k, v in want.items()) / scale
+        replay = ranks[0]["ddpo"]["replay"]
+        if update_gap > DP_UPDATE_TOL or abs(replay["ratio_mean"] - 1.0) > RATIO_TOL or \
+                replay["clip_frac"] != 0.0:
+            raise AssertionError(f"dp DDPO: weights {update_gap} of scale, replay {replay}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out, ignore_errors=True)
+    rec = dict(phase="dp", main=dict(seconds=main_seconds, joined=joined),
+               ranks=DP_RANKS, backend="gloo", batch=DP_BATCH, gaps=gaps, tol=DP_SAME_TOL,
+               draw_checksums_equal=draws, whole_batch_gaps=whole, prefix_steps=DP_PREFIX,
+               prefix_gaps=prefix, prefix_tol=DP_PREFIX_TOL, diffcsp_gain=gain,
+               net_rows_vs_whole=net, net_tol=NET_TOL,
+               kernel_launches_per_rank=launches, kernel_vs_plain=kernel,
+               rank_sample_seconds=[ranks[r]["mattergen"]["seconds"] for r in range(DP_RANKS)],
+               one_process_sample_seconds=ref["mattergen"]["seconds"],
+               ddpo_weights_of_scale=update_gap, ddpo_tol=DP_UPDATE_TOL,
+               ddpo_replay=replay, ddpo_epoch_stats=ranks[0]["ddpo"]["epoch_stats"],
+               ddpo_epoch_stats_one=ref["ddpo"]["epoch_stats"],
+               ranks_seconds=ranks_seconds, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
 def instances(build_rec: dict, library: str, prefix: str) -> list[dict]:
     """The build's instances of ``library`` whose name starts with
     ``prefix``: registers, spills and shared memory of each."""
@@ -2063,6 +2560,8 @@ def main() -> int:
     entry = {"main": phase_main(), "baseline": phase_baseline(), "gen_eval": phase_gen_eval()}
     pre = phase_pretrain()
     phase_syn_score_train()
+    alignn = phase_alignn()
+    dp = phase_dp()
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     b = kern["buckets"]
     common = dict(route="cuda", impl="cuda", checked=True)
@@ -2086,6 +2585,10 @@ def main() -> int:
         # pretraining (the plain net: 0)
         **{f"launches_{k}": v["kernel_launches"] for k, v in entry.items()},
         launches_pretrain=pre["kernel_launches"],
+        # the ALIGNN reward's main iteration (the sampler's plan) and each
+        # data-parallel rank's sample of its rows (its own plan)
+        launches_alignn_main=alignn["main"]["kernel_launches"],
+        launches_dp_per_rank=dp["kernel_launches_per_rank"],
         max_abs_err=kern["max_abs_err_f32"],
         max_abs_err_bf16=kern["max_abs_err_bf16"],
         # one layer-eval of the batch: the sum over the bucket shapes, f32

@@ -194,6 +194,23 @@ class CSPArrayNoise(CSPNoiseSource):
         )
 
 
+class CSPRowNoise(CSPNoiseSource):
+    """Rows ``rows`` of the draws ``inner`` makes for a batch of ``total``
+    rows: a data-parallel rank samples its block of the global batch on the
+    draws the single process would make (``parallel/mesh.py``)."""
+
+    def __init__(self, inner: CSPNoiseSource | torch.Generator, rows: slice, total: int):
+        self.inner = CSPGeneratorNoise(inner) if isinstance(inner, torch.Generator) else inner
+        self.rows = rows
+        self.total = total
+
+    def prior(self, B, A, K, device):
+        return tuple(x[self.rows] for x in self.inner.prior(self.total, A, K, device))
+
+    def step(self, i, B, A, K, device):
+        return CSPStepDraws(*(x[self.rows] for x in self.inner.step(i, self.total, A, K, device)))
+
+
 # the keys of one recorded transition, as the JAX recorder names them
 TRAJ_STATE_KEYS = (
     "frac_coords", "lattices", "atom_types", "frac_coords_mid",
@@ -322,7 +339,7 @@ class DiffCSPDiffusion(nn.Module):
         C, B, A = len(t_indices), batch.batch_size, batch.max_atoms
         dev = batch.frac_coords.device
         if draws is None:
-            draws = noise_draws((C,), B, A, self.config.max_atomic_num, generator, dev)
+            draws = self.rl_draws(C, B, A, generator, dev)
         big = CrystalBatch(
             atom_types=batch.atom_types.repeat(C, 1),
             frac_coords=batch.frac_coords.repeat(C, 1, 1),
@@ -342,6 +359,11 @@ class DiffCSPDiffusion(nn.Module):
         # (1.1 - reward) weights the KL, as the JAX package does
         loss_kl = kl * (1.1 - r)
         return loss_diff.reshape(C, B), loss_kl.reshape(C, B)
+
+    def rl_draws(self, C: int, B: int, A: int, generator: torch.Generator | None,
+                 device) -> NoiseDraws:
+        """The fine-tune's draws for ``C`` time indices of ``B`` crystals."""
+        return noise_draws((C,), B, A, self.config.max_atomic_num, generator, device)
 
     def rl_timestep_loss(self, prior, batch, rewards, t_index: int, sigma_kl: float,
                          draws: NoiseDraws | None = None, generator=None, conditions=None):

@@ -218,6 +218,25 @@ class ArrayNoise(NoiseSource):
         )
 
 
+class RowNoise(NoiseSource):
+    """Rows ``rows`` of the draws ``inner`` makes for a batch of ``total``
+    rows: a data-parallel rank samples its block of the global batch on the
+    draws the single process would make (``parallel/mesh.py``)."""
+
+    def __init__(self, inner: NoiseSource | torch.Generator, rows: slice, total: int):
+        self.inner = _as_noise(inner)
+        self.rows = rows
+        self.total = total
+
+    def prior(self, B, A, vocab, device):
+        return tuple(x[self.rows] for x in self.inner.prior(self.total, A, vocab, device))
+
+    def step(self, i, B, A, vocab, n_corrector, device):
+        d = self.inner.step(i, self.total, A, vocab, n_corrector, device)
+        r = self.rows
+        return StepDraws(d.cell[r], d.pos[r], d.gumbel[r], d.corr[:, r])
+
+
 class MatterGenDiffusion(nn.Module):
     """The score net (``self.decoder``) and the sampler around it.
 
@@ -364,7 +383,7 @@ class MatterGenDiffusion(nn.Module):
         C, B, A = len(t_indices), batch.batch_size, batch.max_atoms
         dev = batch.frac_coords.device
         if draws is None:
-            draws = noise_draws((C,), B, A, self.d3pm.vocab, generator, dev)
+            draws = self.rl_draws(C, B, A, generator, dev)
         big = CrystalBatch(
             atom_types=batch.atom_types.repeat(C, 1),
             frac_coords=batch.frac_coords.repeat(C, 1, 1),
@@ -385,6 +404,11 @@ class MatterGenDiffusion(nn.Module):
         # (1.1 - reward) weights the KL, as the JAX package does
         loss_kl = kl * (1.1 - r)
         return loss_diff.reshape(C, B), loss_kl.reshape(C, B)
+
+    def rl_draws(self, C: int, B: int, A: int, generator: torch.Generator | None,
+                 device) -> NoiseDraws:
+        """The fine-tune's draws for ``C`` grid indices of ``B`` crystals."""
+        return noise_draws((C,), B, A, self.d3pm.vocab, generator, device)
 
     def rl_timestep_loss(
         self, prior: "MatterGenDiffusion", batch: CrystalBatch, rewards: torch.Tensor,

@@ -15,6 +15,7 @@ import torch
 
 from matinvent_tpu_torch.chem.structure import Structure
 from matinvent_tpu_torch.models.batch import CrystalBatch
+from matinvent_tpu_torch.models.diffcsp import CSPRowNoise
 
 ATOM_DIST = {
     "perov_5": [0, 0, 0, 0, 0, 1],
@@ -133,9 +134,16 @@ class DiffCSPSampler:
         return self._generator
 
     def launch(self, model, batch_size: int | None = None,
-               num_batches: int | None = None) -> CrystalBatch:
+               num_batches: int | None = None, sharding=None) -> CrystalBatch:
         """Sample ``batch_size * num_batches`` crystals on the model's device,
-        recording the trajectory with ``record_trajectories``."""
+        recording the trajectory with ``record_trajectories``.
+
+        With ``sharding`` (``parallel.mesh.batch_sharding``) this rank
+        samples its block of rows of that global batch and returns it: the
+        atom counts are drawn on the host for the whole batch (the same
+        seed on every rank), and each step's draws are the whole batch's,
+        of which the rank keeps its rows, so the ranks' blocks gathered
+        (``parallel.mesh.gather_batch``) are the single process's batch."""
         batch_size = batch_size or self.batch_size
         num_batches = num_batches or self.num_batches
         if batch_size is None or num_batches is None:
@@ -145,9 +153,14 @@ class DiffCSPSampler:
         # histograms may reach past max_atoms (carbon_24 reaches 24)
         num_atoms = np.clip(num_atoms, 1, self.max_atoms)
         device = model.device
+        noise = self._generator_for(device)
+        if sharding is not None:
+            rows = sharding.rows(total)
+            num_atoms = num_atoms[rows]
+            noise = CSPRowNoise(noise, rows, total)
         num_atoms_dev = torch.as_tensor(num_atoms, device=device)
         final, traj = model.sample(
-            self._generator_for(device), num_atoms_dev, max_atoms=self.max_atoms,
+            noise, num_atoms_dev, max_atoms=self.max_atoms,
             step_lr=self.resolved_step_lr(), record_traj=self.record_trajectories,
         )
         if self.record_trajectories:

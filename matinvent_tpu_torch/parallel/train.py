@@ -20,6 +20,17 @@ rows (``rows``, the scored crystals) and sends the chunk's steps through one
 batched forward, as JAX's ``vmap`` does; at the recording parameters the
 ratios are 1 up to the summation order the products take at the replay's
 shapes.
+
+Data parallel (``mesh``, ``parallel/mesh.py``): each rank holds its
+contiguous block of the batch's rows (of the trajectory's, for DDPO), of
+one size on every rank (``Mesh.rows`` splits evenly), and the replicated
+parameters. What JAX's sharded ``jit`` derives, the steps do
+by hand: every loss is divided by the global row count, so that the sum of
+the ranks' gradients (one all-reduce before the step) is the global
+gradient; the gradient clip runs after that reduce, on the global gradient;
+the NaN guard, the reported losses, the ratio statistics and the
+advantages' mean and std are over all rows. The fine-tune's draws are the
+whole batch's, of which each rank keeps its rows, as the sampler's are.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ import torch
 from torch import nn
 
 from matinvent_tpu_torch.models.batch import CrystalBatch
+from matinvent_tpu_torch.parallel.mesh import Mesh
 from matinvent_tpu_torch.parallel.train_predictor import clip_by_global_norm_
 
 # chunk index -> the chunk's draws (the family's ``NoiseDraws``, leading
@@ -75,32 +87,49 @@ class FinetuneStep:
         generator: torch.Generator | None = None,
         draws: ChunkDraws | None = None,
         conditions=None,
+        mesh: Mesh | None = None,
     ) -> dict[str, float]:
         """One pass over the chunks; updates ``agent`` in place and returns
         the epoch's ``loss`` (mean chunk loss), ``loss_diff`` and ``loss_kl``
-        (per crystal and timestep)."""
+        (per crystal and timestep). Under ``mesh`` the batch, rewards and
+        conditions are this rank's rows, and ``draws`` the whole batch's."""
         dev = batch.frac_coords.device
+        B = int(rewards.shape[0])
+        total = B if mesh is None else B * mesh.size
+        rows = None if mesh is None else mesh.rows(total)
+        params = [p for p in agent.parameters() if p.requires_grad]
         losses, diff_sum, kl_sum = [], 0.0, 0.0
         for c in range(self.n_chunks):
             t_idx = c * self.accum_steps + torch.arange(self.accum_steps, device=dev)
+            d = None if draws is None else draws(c)
+            if mesh is not None:
+                if d is None:
+                    d = agent.rl_draws(self.accum_steps, total, batch.max_atoms, generator, dev)
+                d = type(d)(*(x[:, rows] for x in d))
             optimizer.zero_grad(set_to_none=True)
             loss, (ld, lk) = agent.rl_chunk_loss(
                 prior, batch, rewards, t_idx, self.sigma_kl,
-                draws=None if draws is None else draws(c), generator=generator,
-                conditions=conditions,
+                draws=d, generator=generator, conditions=conditions,
             )
+            if mesh is not None:
+                loss = loss * (B / total)
+            seen = loss.detach() if mesh is None else mesh.all_reduce_(loss.detach().clone())
             # the NaN guard: no step, so Adam's moments and count stay too
-            if torch.isfinite(loss):
+            if torch.isfinite(seen):
                 loss.backward()
+                if mesh is not None:
+                    mesh.all_reduce_grads_(params)
                 optimizer.step()
-            losses.append(loss.detach())
+            losses.append(seen)
             diff_sum = diff_sum + ld.detach()
             kl_sum = kl_sum + lk.detach()
-        B = max(int(rewards.shape[0]), 1)
+        if mesh is not None:
+            diff_sum, kl_sum = mesh.all_reduce_(torch.stack([diff_sum, kl_sum]))
+        total = max(total, 1)
         return dict(
             loss=float(torch.stack(losses).mean()),
-            loss_diff=float(diff_sum) / (self.timesteps * B),
-            loss_kl=float(kl_sum) / (self.timesteps * B),
+            loss_diff=float(diff_sum) / (self.timesteps * total),
+            loss_kl=float(kl_sum) / (self.timesteps * total),
         )
 
     def run(
@@ -111,28 +140,33 @@ class FinetuneStep:
         rewards: torch.Tensor,
         generator: torch.Generator | None = None,
         conditions=None,
+        mesh: Mesh | None = None,
     ) -> list[dict[str, float]]:
         """The whole fine-tune of one RL iteration, in place: a fresh Adam,
         then ``epochs`` epochs over the same batch, each drawing its noise
         from ``generator``. Returns each epoch's metrics."""
         opt = self.optimizer(agent)
         return [
-            self.epoch(agent, opt, prior, batch, rewards, generator, conditions=conditions)
+            self.epoch(agent, opt, prior, batch, rewards, generator, conditions=conditions,
+                       mesh=mesh)
             for _ in range(self.epochs)
         ]
 
 
-def _ratio_stats(ratio: torch.Tensor, w: torch.Tensor, clip_eps: float) -> dict[str, torch.Tensor]:
-    """Importance-ratio statistics over the valid transitions of one chunk:
-    ``ratio`` ``[C, B]``, ``w`` the ``[C, 1]`` validity weight. At the
-    recording weights a correct replay gives ratios of 1."""
+def _ratio_stats(ratio: torch.Tensor, w: torch.Tensor, clip_eps: float,
+                 mesh: Mesh | None = None) -> dict[str, torch.Tensor]:
+    """Importance-ratio statistics over the valid transitions of one chunk
+    (of every rank's rows under ``mesh``): ``ratio`` ``[C, B]``, ``w`` the
+    ``[C, 1]`` validity weight. At the recording weights a correct replay
+    gives ratios of 1."""
     wb = torch.broadcast_to(w, ratio.shape)
-    n = torch.clamp(torch.sum(wb), min=1.0)
-    return dict(
-        ratio_mean=torch.sum(ratio * wb) / n,
-        ratio_max=torch.max(ratio * wb),
-        clip_frac=torch.sum((torch.abs(ratio - 1.0) > clip_eps) * wb) / n,
-    )
+    sums = torch.stack([torch.sum(ratio * wb), torch.sum(wb),
+                        torch.sum((torch.abs(ratio - 1.0) > clip_eps) * wb)])
+    top = torch.max(ratio * wb)
+    if mesh is not None:
+        sums, top = mesh.all_reduce_(sums), mesh.all_reduce_(top.clone(), "max")
+    n = torch.clamp(sums[1], min=1.0)
+    return dict(ratio_mean=sums[0] / n, ratio_max=top, clip_frac=sums[2] / n)
 
 
 def _flat_rows(traj, keys, sl: slice, rows) -> dict[str, torch.Tensor]:
@@ -193,8 +227,10 @@ class DDPOFinetuneStep:
         return (steps > 1).to(torch.float32)
 
     # ------------------------------------------------------------ the update
-    def chunk_loss(self, agent, traj, c: int, rows, num_atoms, mask, advantages, **replay):
-        """(PPO loss of chunk ``c``, its ratio statistics)."""
+    def chunk_loss(self, agent, traj, c: int, rows, num_atoms, mask, advantages,
+                   mesh: Mesh | None = None, total: int | None = None, **replay):
+        """(PPO loss of chunk ``c``, its ratio statistics); under ``mesh``
+        the loss is this rank's share of the mean over all ``total`` rows."""
         sl = slice(c * self.chunk, (c + 1) * self.chunk)
         new_lp = self.new_logprob(agent, traj, sl, rows, num_atoms, mask, **replay)  # [C, B]
         old_lp = sum(traj[k][sl][:, rows] for k in self.lp_keys)
@@ -203,8 +239,9 @@ class DDPOFinetuneStep:
         clipped = torch.clamp(ratio, 1.0 - self.clip_eps, 1.0 + self.clip_eps)
         obj = torch.minimum(ratio * advantages, clipped * advantages)
         w = self.valid(agent, steps)[:, None]
-        loss = -torch.sum(obj * w) / torch.clamp(torch.sum(w) * obj.shape[1], min=1.0)
-        return loss, _ratio_stats(ratio.detach(), w, self.clip_eps)
+        n_rows = obj.shape[1] if total is None else total
+        loss = -torch.sum(obj * w) / torch.clamp(torch.sum(w) * n_rows, min=1.0)
+        return loss, _ratio_stats(ratio.detach(), w, self.clip_eps, mesh)
 
     def _n_chunks(self, traj) -> int:
         T = traj[self.step_key].shape[0]
@@ -225,38 +262,54 @@ class DDPOFinetuneStep:
         return float(torch.stack(losses).mean()), agg
 
     def update(self, agent, optimizer, traj, num_atoms, mask, advantages, rows=None,
-               **replay) -> tuple[float, dict[str, float]]:
+               mesh: Mesh | None = None, **replay) -> tuple[float, dict[str, float]]:
         """One PPO pass over the trajectory's chunks, one optimizer step per
         chunk: (mean chunk loss, ratio statistics: the chunks' mean ratio,
-        their largest ratio and mean clipped fraction)."""
+        their largest ratio and mean clipped fraction). Under ``mesh`` the
+        trajectory, ``rows`` and ``advantages`` are this rank's, and the
+        gradients are summed over the ranks before the clip and the step."""
         rows = torch.arange(num_atoms.shape[0], device=num_atoms.device) if rows is None else rows
+        total = None if mesh is None else len(rows) * mesh.size
         losses, stats = [], []
         params = [p for p in agent.parameters() if p.requires_grad]
         for c in range(self._n_chunks(traj)):
             optimizer.zero_grad(set_to_none=True)
-            loss, st = self.chunk_loss(agent, traj, c, rows, num_atoms, mask, advantages, **replay)
+            loss, st = self.chunk_loss(agent, traj, c, rows, num_atoms, mask, advantages,
+                                       mesh, total, **replay)
             loss.backward()
+            if mesh is not None:
+                mesh.all_reduce_grads_(params)
             clip_by_global_norm_(params, self.max_grad_norm)
             optimizer.step()
-            losses.append(loss.detach())
+            losses.append(loss.detach() if mesh is None else mesh.all_reduce_(loss.detach().clone()))
             stats.append(st)
         return self._epoch_stats(losses, stats)
 
     @torch.no_grad()
-    def replay_stats(self, agent, traj, num_atoms, mask, rows=None, **replay) -> dict[str, float]:
-        """The ratio statistics of the whole trajectory at ``agent``'s
-        current parameters, without an update (the behaviour policy's own
-        replay gives a mean of 1 and no clipped ratio)."""
+    def replay_stats(self, agent, traj, num_atoms, mask, rows=None, mesh: Mesh | None = None,
+                     **replay) -> dict[str, float]:
+        """The ratio statistics of the whole trajectory (every rank's under
+        ``mesh``) at ``agent``'s current parameters, without an update (the
+        behaviour policy's own replay gives a mean of 1 and no clipped
+        ratio)."""
         rows = torch.arange(num_atoms.shape[0], device=num_atoms.device) if rows is None else rows
         zeros = torch.zeros(len(rows), device=num_atoms.device)
-        out = [self.chunk_loss(agent, traj, c, rows, num_atoms, mask, zeros, **replay)
+        total = None if mesh is None else len(rows) * mesh.size
+        out = [self.chunk_loss(agent, traj, c, rows, num_atoms, mask, zeros, mesh, total, **replay)
                for c in range(self._n_chunks(traj))]
         return self._epoch_stats([o[0] for o in out], [o[1] for o in out])[1]
 
-    def advantages(self, rewards: torch.Tensor, baseline=None) -> torch.Tensor:
+    def advantages(self, rewards: torch.Tensor, baseline=None,
+                   mesh: Mesh | None = None) -> torch.Tensor:
         """Rewards less the baseline (their mean by default), standardized
-        with ``adv_norm``: centred again, then over the population std + 1e-6."""
+        with ``adv_norm``: centred again, then over the population std + 1e-6.
+        Under ``mesh`` ``rewards`` are this rank's: the statistics are taken
+        over every rank's, and this rank's advantages returned."""
         rewards = rewards.to(torch.float32)
+        if mesh is not None:
+            n = rewards.shape[0]
+            full = self.advantages(mesh.all_gather_rows(rewards), baseline)
+            return full[mesh.rank * n: (mesh.rank + 1) * n]
         adv = rewards - (baseline if baseline is not None else torch.mean(rewards))
         if self.adv_norm:
             adv = adv - torch.mean(adv)
@@ -264,18 +317,19 @@ class DDPOFinetuneStep:
         return adv
 
     def run(self, agent, traj, num_atoms, mask, rewards, baseline=None, rows=None,
-            **replay) -> float:
+            mesh: Mesh | None = None, **replay) -> float:
         """The DDPO fine-tune of one RL iteration, in place: a fresh
         optimizer, then ``epochs`` PPO passes. ``rewards`` are those of the
-        rows ``rows`` of the recorded batch (all rows by default). Keeps
-        each pass's ratio statistics (``epoch_stats``) and the last pass's
-        (``last_stats``, the pipeline's ``ddpo_*`` columns); returns the last
-        pass's loss."""
-        adv = self.advantages(rewards, baseline)
+        rows ``rows`` of the recorded batch (all rows by default; under
+        ``mesh`` this rank's block of it). Keeps each pass's ratio
+        statistics (``epoch_stats``) and the last pass's (``last_stats``,
+        the pipeline's ``ddpo_*`` columns); returns the last pass's loss."""
+        adv = self.advantages(rewards, baseline, mesh)
         opt = self.optimizer(agent)
         loss, self.epoch_stats = 0.0, []
         for _ in range(max(self.epochs, 1)):
-            loss, stats = self.update(agent, opt, traj, num_atoms, mask, adv, rows, **replay)
+            loss, stats = self.update(agent, opt, traj, num_atoms, mask, adv, rows, mesh,
+                                      **replay)
             self.epoch_stats.append(stats)
         self.last_stats = self.epoch_stats[-1]
         return loss

@@ -26,8 +26,8 @@ the valid samples (and rewrites their extxyz) before the filter, which then
 reads the relaxer's energies; it and the filter's ``relaxer`` are named as
 ``{"class": "SoftSphereRelaxer", ...keyword arguments}`` (``RELAXERS``).
 The model section's ``sample_cfg.target_compositions_dict`` samples in CSP
-mode. The calculators that are not ported (ALIGNN, DFT) raise
-``NotImplementedError``.
+mode. Every calculator of the JAX package is ported (``CALCULATORS``): the
+ALIGNN calculator runs on the model's device, the DFT bridge on the host.
 
     python -m matinvent_tpu_torch.pipeline.mat_invent --recipe rl_hhi_rich5 \\
         --rl-epoch 2 --out runs/hhi [--reward NAME] [--device cpu] \\
@@ -69,6 +69,8 @@ from matinvent_tpu_torch.pipeline.logger import CSVLogger, Logger, setup_logging
 from matinvent_tpu_torch.pipeline.save import save_structures
 from matinvent_tpu_torch.recipes import RECIPES, REPO_PATHS, REWARDS
 from matinvent_tpu_torch.rewards.calculators import Empirical, PropertyPredictor, SynScore
+from matinvent_tpu_torch.rewards.calculators.alignn import ALIGNN
+from matinvent_tpu_torch.rewards.calculators.dft import DFTCalc
 from matinvent_tpu_torch.rewards.calculators.mlip import MLIPBridge
 from matinvent_tpu_torch.rewards.reward import Reward
 from matinvent_tpu_torch.utils.checkpoint import (
@@ -85,6 +87,8 @@ CALCULATORS = {
     "PropertyPredictor": (PropertyPredictor, True),
     "SynScore": (SynScore, True),
     "MLIPBridge": (MLIPBridge, True),
+    "ALIGNN": (ALIGNN, True),
+    "DFTCalc": (DFTCalc, False),
 }
 # a relaxer config's ``class`` (``sample_cfg.mlip_opt``, the filter's
 # ``relaxer``); every relaxer runs on the model's device

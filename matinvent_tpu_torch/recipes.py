@@ -40,7 +40,9 @@ density.
 ``REWARDS`` holds the reward sections of ``configs/reward/*.yaml`` whose
 calculators the port runs (the entry point's ``--reward NAME``, Hydra's
 ``reward=NAME``): the empirical ones, the GNN property predictors,
-SynScore and the MLIP bridge's heat capacity. A calculator's class is the last component of the YAML's
+SynScore, the MLIP bridge's heat capacity, published ALIGNN
+(``band_gap_alignn``: ``model_dir`` or ``$ALIGNN_MODEL_DIR``) and the remote
+DFT bridge (``dft``). A calculator's class is the last component of the YAML's
 ``_target_``, under the calculator's ``class`` key; without that key it is
 ``Empirical``. ``BASE_FILTER`` is the sample filter of
 ``configs/base.yaml`` (``OptFilter`` arguments), which the recipe variant
@@ -110,6 +112,14 @@ REWARDS = {
     "young_modulus": _section(_prop("young_modulus", _PP, "ascending", 80.0, 480.0)),
     "heat_capacity": _section(
         _prop("heat_capacity", "MLIPBridge", "ascending", 0.25, 2.0, env_name=None, worker=5)),
+    "band_gap_alignn": _section(
+        _prop("band_gap", "ALIGNN", 3.0, 0.0, 2.0, root="bandgap", model_dir=None),
+        threshold=0.875),
+    "dft": _section(
+        {"name": "dft_band_gap", "calculator": {"class": "DFTCalc", "root_dir": "rewards/dft_bandgap",
+                                                "task": "band_gap", "max_node": 16},
+         "target": 3.0, "minv": 0.0, "maxv": 2.0},
+        threshold=0.875),
 }
 
 BASE_FILTER = {

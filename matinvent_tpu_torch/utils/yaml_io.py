@@ -5,11 +5,14 @@ forms the configs under ``configs/`` and the runs' ``hparams.yaml`` use:
 block mappings and sequences (sequences indented or not under their key,
 compact ``- key: value`` mappings, ``- - a`` nested sequences), flow
 collections on one line (``[a, b]``, ``{k: v}``, ``[]``), plain, single-
-and double-quoted scalars, and comments. Plain scalars resolve as YAML 1.1
-(PyYAML's resolver) does: ``1.0e-05`` is a float but ``1e-4`` a string,
-``yes``/``on`` are booleans, ``0o17``-style octals are ``017``. It raises
-``ValueError`` on what it does not read: block scalars (``|``, ``>``),
-anchors, aliases, tags, timestamps and multi-line flows or plain scalars.
+and double-quoted scalars (single-quoted ones over several lines too, as
+``yaml.safe_dump`` writes a string with line breaks), literal block scalars
+(``|``, ``|-``, ``|+``: a DFT job's scheduler script), and comments. Plain scalars resolve as YAML
+1.1 (PyYAML's resolver) does: ``1.0e-05`` is a float but ``1e-4`` a
+string, ``yes``/``on`` are booleans, ``0o17``-style octals are ``017``. It
+raises ``ValueError`` on what it does not read: folded block scalars
+(``>``), indentation indicators, anchors, aliases, tags, timestamps and
+multi-line flows or plain scalars.
 
 ``dump_yaml`` writes nested dicts, lists and scalars in ``yaml.safe_dump``'s
 block style (keys in their order), quoting a string wherever the reader
@@ -265,6 +268,18 @@ def _split_key(text: str, where: str):
     return resolve_plain(text[: m.start()].rstrip(" \t")), text[m.end():].strip(" \t")
 
 
+def _closes(text: str) -> bool:
+    """Whether the single-quoted scalar opening ``text`` ends on it."""
+    j = 1
+    while j < len(text):
+        if text[j] == "'":
+            if text[j + 1: j + 2] != "'":
+                return True
+            j += 1
+        j += 1
+    return False
+
+
 def _is_item(text: str) -> bool:
     return text == "-" or text.startswith("- ") or text.startswith("-\t")
 
@@ -272,8 +287,10 @@ def _is_item(text: str) -> bool:
 class _Parser:
     def __init__(self, text: str, name: str):
         self.name = name
+        self.raw = text.splitlines()  # a literal block scalar reads these
+        self.ends_with_break = text.endswith(("\n", "\r"))
         self.lines: list[list] = []  # [indent, text, lineno]
-        for lineno, raw in enumerate(text.splitlines(), 1):
+        for lineno, raw in enumerate(self.raw, 1):
             body = _strip_comment(raw)
             if not body.strip():
                 continue
@@ -322,8 +339,12 @@ class _Parser:
         """The value of an entry whose line ``i`` leaves ``rest`` after its
         indicator; returns it and the next line's index."""
         if rest:
-            if rest[0] in "|>":
-                raise ValueError(f"{self.where(i)}: block scalars are not supported")
+            if rest[0] == "|":
+                return self.literal(i, indent, rest)
+            if rest[0] == ">":
+                raise ValueError(f"{self.where(i)}: folded block scalars are not supported")
+            if rest[0] == "'" and not _closes(rest):
+                return self.quoted_lines(i, rest)
             return self.inline(rest, i), i + 1
         nxt = i + 1
         if nxt < len(self.lines):
@@ -333,6 +354,90 @@ class _Parser:
             if seq_same_indent and col == indent and _is_item(text):
                 return self.sequence(nxt, indent)
         return None, nxt
+
+    def quoted_lines(self, i: int, rest: str):
+        """A single-quoted scalar that ``rest`` opens on line ``i`` and a
+        later raw line closes (``yaml.safe_dump`` writes a string with line
+        breaks so): lines folded, a line break to a space, each empty line
+        to a newline; returns it and the index of the next parsed line."""
+        raw = self.raw[self.lines[i][2] - 1].rstrip()
+        text = raw[len(raw) - len(rest) + 1:]
+        row, parts, cur = self.lines[i][2] - 1, [], []
+        while True:
+            j = 0
+            while j < len(text):
+                if text[j] == "'":
+                    if text[j + 1: j + 2] == "'":
+                        cur.append("'")
+                        j += 2
+                        continue
+                    tail = text[j + 1:].strip()
+                    if tail and not tail.startswith("#"):
+                        raise ValueError(f"{self.where(i)}: unexpected text after a value")
+                    parts.append("".join(cur))
+                    first, *more = parts
+                    out, empties = first.rstrip(" \t"), 0
+                    for k, p in enumerate(more, 1):
+                        p = p.strip(" \t") if k < len(more) else p.lstrip(" \t")
+                        if not p and k < len(more):
+                            empties += 1
+                            continue
+                        out += "\n" * empties if empties else " "
+                        out += p
+                        empties = 0
+                    nxt = i + 1
+                    while nxt < len(self.lines) and self.lines[nxt][2] <= row + 1:
+                        nxt += 1
+                    return out, nxt
+                cur.append(text[j])
+                j += 1
+            parts.append("".join(cur))
+            cur = []
+            row += 1
+            if row >= len(self.raw):
+                raise ValueError(f"{self.where(i)}: unterminated quoted scalar")
+            text = self.raw[row]
+
+    def literal(self, i: int, indent: int, header: str):
+        """The literal block scalar opened by ``header`` on line ``i``: the
+        raw lines below it indented past ``indent`` (blank lines and ``#``
+        kept), less the first content line's indentation, chomped as the
+        header says; returns it and the index of the next parsed line."""
+        chomp = header[1:]
+        if chomp not in ("", "-", "+"):
+            raise ValueError(f"{self.where(i)}: block scalar header {header!r} is not supported")
+        end = self.lines[i][2]  # raw index of the line after the header
+        body = []
+        while end < len(self.raw):
+            line = self.raw[end]
+            if line.strip() and len(line) - len(line.lstrip(" ")) <= indent:
+                break
+            body.append(line)
+            end += 1
+        content = [ln for ln in body if ln.strip()]
+        col = len(content[0]) - len(content[0].lstrip(" ")) if content else indent + 1
+        out = []
+        for ln in body:
+            if ln.strip() and len(ln) - len(ln.lstrip(" ")) < col:
+                raise ValueError(f"{self.where(i)}: a block scalar line is indented less "
+                                 "than its first line")
+            out.append(ln[col:])
+        # the text's last line may end without a line break
+        breaks = [True] * len(out)
+        if out and end == len(self.raw) and not self.ends_with_break:
+            breaks[-1] = False
+        core = len(out)
+        while core and not out[core - 1]:
+            core -= 1
+        if chomp == "+":
+            value = "".join(ln + "\n" * b for ln, b in zip(out, breaks))
+        else:
+            value = "\n".join(out[:core]) + ("\n" if core and chomp == "" and breaks[core - 1]
+                                              else "")
+        nxt = i + 1
+        while nxt < len(self.lines) and self.lines[nxt][2] <= end:
+            nxt += 1
+        return value, nxt
 
     def mapping(self, i: int, indent: int):
         out: dict = {}
@@ -351,7 +456,9 @@ class _Parser:
         while i < len(self.lines) and self.lines[i][0] == indent and _is_item(self.lines[i][1]):
             text = self.lines[i][1]
             rest = text[1:].lstrip(" \t")
-            if rest and (_is_item(rest) or _split_key(rest, self.where(i)) is not None):
+            opens_quote = rest[:1] == "'" and not _closes(rest)
+            if rest and not opens_quote and (
+                    _is_item(rest) or _split_key(rest, self.where(i)) is not None):
                 # a nested sequence or a compact mapping opened on this line
                 col = indent + len(text) - len(rest)
                 self.lines[i] = [col, rest, self.lines[i][2]]

@@ -113,11 +113,35 @@ def test_entry_points_refuse_what_they_cannot_run(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main([f"results_dir={tmp_path}", "expname=x"])
         assert not (tmp_path / "x").exists()
-    with pytest.raises(NotImplementedError, match="alignn.ALIGNN"):
-        cli.main([f"results_dir={tmp_path}", "expname=a", "reward=band_gap_alignn", "device=cpu"])
-    monkeypatch.setenv("MATINVENT_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        cli.main([f"results_dir={tmp_path}", "expname=c", "device=cpu"])
+    # ALIGNN builds; with no checkpoints it raises JAX's FileNotFoundError
+    # when the iteration reaches scoring
+    monkeypatch.delenv("ALIGNN_MODEL_DIR", raising=False)
+    argv = [f"results_dir={tmp_path}", *[a for a in E2E if not a.startswith("reward=")],
+            "reward=band_gap_alignn", "device=cpu"]
+    with pytest.raises(FileNotFoundError, match="no model_dir"):
+        cli.main(argv)
+    assert (tmp_path / "smoke" / "samples" / "step_0000_valid.extxyz").exists()
+    # MATINVENT_COORDINATOR at world size 1 on the CPU joins a gloo group
+    # and runs the unsharded pipeline
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    monkeypatch.setenv("MATINVENT_COORDINATOR", f"127.0.0.1:{port}")
+    monkeypatch.setenv("MATINVENT_NUM_PROCESSES", "1")
+    monkeypatch.setenv("MATINVENT_PROCESS_ID", "0")
+    try:
+        pipe = cli.main([f"results_dir={tmp_path}", *E2E[1:], "expname=c", "device=cpu"])
+        assert dist.is_initialized() and dist.get_world_size() == 1
+        assert dist.get_backend() == "gloo"
+        assert isinstance(pipe, MatInvent) and pipe.agent.device.type == "cpu"
+        assert (tmp_path / "c" / "metrics.csv").exists()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_gen_eval_writes_jax_s_keys_and_opt_eval_s_fractions(tmp_path):

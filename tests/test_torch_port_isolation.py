@@ -167,3 +167,56 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
     )
     assert alone.returncode != 0
     assert '"ok"' not in alone.stdout
+
+
+# the modules of the last reward calculators and of data parallelism
+LATE_MODULES = [
+    "matinvent_tpu_torch.parallel.mesh",
+    "matinvent_tpu_torch.rewards.calculators.alignn.graphs",
+    "matinvent_tpu_torch.rewards.calculators.alignn.model",
+    "matinvent_tpu_torch.rewards.calculators.alignn.load",
+    "matinvent_tpu_torch.rewards.calculators.alignn.calc",
+    "matinvent_tpu_torch.rewards.calculators.dft.job",
+    "matinvent_tpu_torch.rewards.calculators.dft.calc",
+]
+
+
+def test_alignn_dft_and_mesh_import_alone_and_load_weights_only_first(tmp_path):
+    """Each module imports with JAX, PyYAML and the JAX package blocked;
+    ``alignn/load.py`` reads a checkpoint with ``weights_only=True`` first
+    and falls back to ``weights_only=False`` (JAX's behaviour) only for a
+    payload that needs it."""
+    for name in LATE_MODULES:
+        path = PACKAGE / Path(*name.split(".")[1:]).with_suffix(".py")
+        assert _imports(path) <= ALLOWED, name
+    proc = _run(textwrap.dedent(
+        f"""
+        import argparse, importlib, io
+        import torch
+        for name in {LATE_MODULES!r}:
+            importlib.import_module(name)
+        from matinvent_tpu_torch.rewards.calculators.alignn import load
+        calls = []
+        real = torch.load
+
+        def spy(buf, **kw):
+            calls.append(kw.get("weights_only"))
+            return real(buf, **kw)
+
+        load.torch.load = spy
+        plain = io.BytesIO()
+        torch.save({{"fc.weight": torch.ones(2, 3)}}, plain)
+        assert load._torch_load_cpu(plain.getvalue())["fc.weight"].shape == (2, 3)
+        assert calls == [True], calls
+        calls.clear()
+        odd = io.BytesIO()
+        torch.save({{"model": {{"fc.weight": torch.ones(1)}}, "hparams": argparse.Namespace(a=1)}}, odd)
+        assert load._torch_load_cpu(odd.getvalue())["hparams"].a == 1
+        assert calls == [True, False], calls
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("late modules ok")
+        """
+    ))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "late modules ok" in proc.stdout

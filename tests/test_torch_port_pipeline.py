@@ -375,14 +375,23 @@ def test_entry_point_runs_one_tiny_iteration_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    # a calculator class that is not ported (ALIGNN)
+    # the ALIGNN calculator (ported last), on the model's device
     "reward.prop_cfg=[{\"name\": \"band_gap\", \"calculator\": {\"class\": \"ALIGNN\", "
     "\"root_dir\": \"rewards/band_gap\", \"task\": \"band_gap\"}, \"target\": 3.0, "
     "\"minv\": 0.0, \"maxv\": 2.0}]",
 ])
 def test_options_not_ported_raise(tmp_path, option):
+    """Every calculator class of the JAX package builds now: the ALIGNN
+    case builds on the model's device (its checkpoints are resolved at
+    scoring), and an unknown class still raises."""
+    from matinvent_tpu_torch.rewards.calculators.alignn import ALIGNN
+
     key = option if option.startswith(("model.", "reward.")) else f"pipeline.{option}"
     cfg = mat_invent.resolve("rl_hhi_rich5", 1, [a for a in TINY if a != "--set"] + [key])
+    pipe = mat_invent.build(cfg, str(tmp_path), device="cpu")
+    calc = pipe.reward.prop_cfg[0]["calculator"]
+    assert isinstance(calc, ALIGNN) and calc.device.type == "cpu"
+    cfg["reward"]["prop_cfg"][0]["calculator"]["class"] = "NoSuchCalculator"
     with pytest.raises(NotImplementedError):
         mat_invent.build(cfg, str(tmp_path), device="cpu")
 

@@ -589,7 +589,8 @@ def _strip(node, calculator=False):
 
 NEW_REWARDS = ["band_gap", "bulk_modulus", "dielectric", "figure_of_merit", "fom_gap_dielectric",
                "formation_energy", "gap_bulk", "mag_den_hhi", "magnetic_density", "pugh_ratio",
-               "shear_modulus", "syn_score", "vickers_hardness", "young_modulus"]
+               "shear_modulus", "syn_score", "vickers_hardness", "young_modulus",
+               "band_gap_alignn", "dft"]
 
 
 @pytest.mark.parametrize("name", NEW_REWARDS)
