@@ -105,7 +105,17 @@ launch counts set to 0 just before and read just after:
   MatterGen DDPO update, each gathered result against one process (the
   recorded trajectories' first steps against the whole batch), each
   rank's edge-kernel launches against its plan and the kernel against its
-  plain version at each rank's shapes.
+  plain version at each rank's shapes;
+* the tools (phases ``convert``, ``distill``, ``reward_ceiling``): the
+  MatterGen converter's round trip on ``pretrained_mattergen_t1000``, bit
+  for bit; ``tools.distill_mattergen`` as a user runs it (the demo
+  teacher into an h128/L4, T=100 student, 200 steps at batch 64; one step
+  card against CPU first, the kernel against its plain version at the
+  student sample's shapes, the launches read around each part: 800 in the
+  student's sample, none in training or in the teacher-scored sample);
+  ``tools.reward_ceiling``'s scoring of the first 2,048 designs for two
+  predictor rewards card against CPU, and 8 heat-capacity designs through
+  the MLIP bridge's worker on the card, held against JAX's record.
 
 Kernel times are device times (CUDA graph replay, ``experiments/timing.py``).
 Each phase prints one JSON line (the harnesses print their own records
@@ -149,7 +159,7 @@ from matinvent_tpu_torch.chem.structure import Structure, read_extxyz
 from matinvent_tpu_torch.chem.validity import cell_size_ok, smact_valid, structure_validity
 from matinvent_tpu_torch.csrc.build import build, build_host
 from matinvent_tpu_torch.experiments import dp_check, fused_edge_ab, fused_edge_flat
-from matinvent_tpu_torch.experiments.phonon_check import phonon_pair, rocksalt
+from matinvent_tpu_torch.experiments.phonon_check import heat_against_jax, phonon_pair, rocksalt
 from matinvent_tpu_torch.experiments.rl_profile import chunk_inputs, net_flops
 from matinvent_tpu_torch.experiments.timing import (
     PEAK_ROUTE,
@@ -168,7 +178,7 @@ from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
 from matinvent_tpu_torch.models.sample import DiffCSPSampler, batch_to_structures
 from matinvent_tpu_torch.models.suite.diffcsp import DiffCSPSuite
 from matinvent_tpu_torch.models.suite.mattergen import load_config as mattergen_config
-from matinvent_tpu_torch.models.suite.mattergen import load_model
+from matinvent_tpu_torch.models.suite.mattergen import MatterGenSuite, load_model
 from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain, fused_edge_chain_plain
 from matinvent_tpu_torch.parallel.pretrain import PretrainTrainer, structures_to_batches
 from matinvent_tpu_torch.parallel.mesh import Mesh
@@ -184,7 +194,10 @@ from matinvent_tpu_torch.rewards.calculators.alignn.graphs import build_batch as
 from matinvent_tpu_torch.rewards.calculators.alignn.model import run_batch as alignn_run_batch
 from matinvent_tpu_torch.rewards.calculators.mlip import MLIPBridge
 from matinvent_tpu_torch.rewards.calculators.predictor import TASK_MODEL_DICT, PropertyGNN
+from matinvent_tpu_torch.tools import convert_mattergen_ckpt as convert_tool
+from matinvent_tpu_torch.tools import distill_mattergen as distill_tool
 from matinvent_tpu_torch.tools import pretrain as pretrain_tool
+from matinvent_tpu_torch.tools import reward_ceiling as ceiling_tool
 from matinvent_tpu_torch.tools import train_syn_score
 from matinvent_tpu_torch.utils.checkpoint import load_run_state
 from matinvent_tpu_torch.utils.config import load_config, read_flat_yaml
@@ -275,6 +288,24 @@ DP_SAME_TOL = 1e-6
 # over those steps (_diffcsp_gain: 1,000 under the cosine schedule)
 DP_PREFIX, DP_PREFIX_TOL = 10, 2e-4
 DIFFCSP_GAINED = ("lattices", "next_lattices", "atom_types", "next_atom_types")
+# the tools: distillation from the demo teacher at the archived run's widths
+# (h128/L4, T=100, batch 64, cap 8) for DISTILL_STEPS steps; one step card
+# against CPU on the same batch, weights and targets: the loss within 1e-4
+# relative, every gradient entry within DISTILL_GRAD_TOL of the largest, the
+# card's weights after the step within 1e-6 of their scale of the CPU's
+# AdamW step taken on the card's own gradient (every entry), and of the
+# CPU's own step where the gradient lies above its f32 noise (1e-6 of its
+# norm; below it Adam's first step lr g / (|g| + eps) turns the gradients'
+# rounding into up to lr: those entries are reported, not gated)
+DISTILL_CORPUS = ROOT / "experiments/results/dataset.extxyz"
+DISTILL_ARGS = dict(hidden=128, layers=4, timesteps=100, batch=64, max_atoms=8, seed=0,
+                    sample_check_n=32)
+DISTILL_STEPS, DISTILL_LOSS_TOL, DISTILL_WEIGHT_TOL = 200, 1e-4, 1e-6
+DISTILL_GRAD_TOL = 1e-4
+# the reward ceiling: the predictor rewards over the first CEILING_N designs,
+# card against CPU within 1e-5 (rewards lie in [0, 1]); heat capacity on
+# CEILING_HEAT designs of its pick through the bridge's worker, against JAX's
+CEILING_REWARDS, CEILING_N, CEILING_TOL, CEILING_HEAT = ("magnetic_density", "gap_bulk"), 2048, 1e-5, 8
 DEV = "cuda"
 BATCH, BUCKETS, MAX_ATOMS, SEED = 256, 4, 20, 0
 SOURCES = ("fused_edge", "edge_flat")  # csrc/<name>.cu
@@ -2512,6 +2543,264 @@ def phase_dp() -> dict:
     return rec
 
 
+
+def phase_convert() -> dict:
+    """The MatterGen converter both ways on ``pretrained_mattergen_t1000``,
+    its template net on the card: ``to_torch`` then ``to_native`` give back
+    the original ``params.msgpack`` byte for byte, the container's tensors
+    equal the checkpoint's weights, and the converted directory loads to
+    the original net."""
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_convert_"))
+    try:
+        t = time.perf_counter()
+        ckpt = convert_tool.main(["to_torch", f"in={MG_T1000}", f"out={tmp / 'torch'}"])
+        to_torch_seconds = time.perf_counter() - t
+        t = time.perf_counter()
+        convert_tool.main(["to_native", f"in={ckpt}", f"out={tmp / 'native'}"])
+        to_native_seconds = time.perf_counter() - t
+        if (tmp / "native/params.msgpack").read_bytes() != (MG_T1000 / "params.msgpack").read_bytes():
+            raise AssertionError("convert: the round trip changed params.msgpack")
+        original = load_model(MG_T1000, device=DEV).state_dict()
+        container = torch.load(ckpt, map_location="cpu", weights_only=False)["state_dict"]
+        again = load_model(tmp / "native", device=DEV).state_dict()
+        if list(container) != sorted(original) or list(again) != list(original):
+            raise AssertionError("convert: the parameter names differ")
+        for k, v in original.items():
+            if not (torch.equal(container[k], v.cpu()) and torch.equal(again[k], v)):
+                raise AssertionError(f"convert: {k} differs after the round trip")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = dict(phase="convert", checkpoint=str(MG_T1000.relative_to(ROOT)), tensors=len(original),
+               to_torch_seconds=to_torch_seconds, to_native_seconds=to_native_seconds,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def _distill_step_card_vs_cpu() -> dict:
+    """One distillation step from the same student weights on the card and
+    on the CPU: the first training batch, corrupted on the CPU with numpy's
+    draws, and the CPU teacher's targets handed to both."""
+    a = DISTILL_ARGS
+    rng = np.random.default_rng(7)
+    batches = distill_tool.structure_batches(str(DISTILL_CORPUS), a["batch"], a["max_atoms"],
+                                             np.random.default_rng(a["seed"]))
+    batch = batches[max(len(batches) // 5, 1)]
+    cfg = distill_tool.student_config(a["hidden"], a["layers"], a["timesteps"], 100)
+    cpu = MatterGenDiffusion(cfg, device="cpu")
+    card = MatterGenDiffusion(cfg, device=DEV)
+    card.load_state_dict(cpu.state_dict())
+    B, A, V = a["batch"], a["max_atoms"], cpu.d3pm.vocab
+    draws = NoiseDraws(*(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                         for shape in ((B, 3, 3), (B, A, 3))),
+                       torch.from_numpy(rng.gumbel(size=(B, A, V)).astype(np.float32)))
+    t = torch.from_numpy(rng.uniform(1.0 / a["timesteps"], 1.0, B).astype(np.float32))
+    with torch.no_grad():
+        noised, _, _ = cpu.add_noise(batch, None, draws=draws, t=t)
+    teacher = distill_tool.TorchTeacher(distill_tool.DemoTeacherNet.build(100, device="cpu"), 100)
+    targets = distill_tool.teacher_targets(teacher, noised, batch.mask)
+    replay = MatterGenDiffusion(cfg, device="cpu")
+    replay.load_state_dict(cpu.state_dict())
+    out, grads = {}, {}
+    for tag, model in (("card", card), ("cpu", cpu)):
+        dev = model.device
+        m = distill_tool.distill_step(
+            model, distill_tool.distill_optimizer(model, 1e-3), 0, 1e-3, DISTILL_STEPS,
+            MGNoised(*(x.to(dev) for x in noised)), batch.to(dev),
+            {k: v.to(dev) for k, v in targets.items()})
+        out[tag] = {k: float(v) for k, v in m.items()}
+        grads[tag] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    for k in ("loss", "cell", "pos", "type", "grad_norm"):
+        c, r = out["card"][k], out["cpu"][k]
+        if not math.isfinite(c) or abs(c - r) > DISTILL_LOSS_TOL * abs(r):
+            raise AssertionError(f"distill step: card {k} {c} vs CPU {r}")
+    norm = out["cpu"]["grad_norm"]
+    grad_max = max(float(g.abs().max()) for g in grads["cpu"].values())
+    grad_err = max(float((grads["card"][k] - g).abs().max()) for k, g in grads["cpu"].items())
+    # the CPU's AdamW step on the card's gradient, from the same weights
+    opt = distill_tool.distill_optimizer(replay, 1e-3)
+    for k, p in replay.named_parameters():
+        p.grad = grads["card"][k].clone()
+    for group in opt.param_groups:
+        group["lr"] = distill_tool.cosine_decay_lr(0, 1e-3, DISTILL_STEPS, distill_tool.LR_ALPHA)
+    opt.step()
+    card_sd, cpu_sd, replay_sd = card.state_dict(), cpu.state_dict(), replay.state_dict()
+    scale = max(float(v.abs().max()) for v in cpu_sd.values())
+    worst = worst_noisy = step_err = 0.0
+    loose = total = 0
+    for k, v in cpu_sd.items():
+        c = card_sd[k].cpu().double()
+        d = (c - v.double()).abs()
+        noisy = grads["cpu"][k].abs() < 1e-6 * norm
+        worst = max(worst, float(d[~noisy].max()) if (~noisy).any() else 0.0)
+        worst_noisy = max(worst_noisy, float(d.max()))
+        step_err = max(step_err, float((c - replay_sd[k].double()).abs().max()))
+        loose += int((d > DISTILL_WEIGHT_TOL * scale).sum())
+        total += d.numel()
+    if (grad_err > DISTILL_GRAD_TOL * grad_max or step_err > DISTILL_WEIGHT_TOL * scale
+            or worst > DISTILL_WEIGHT_TOL * scale):
+        raise AssertionError(f"distill step: gradients differ by {grad_err} (largest {grad_max}), "
+                             f"the step on the card's gradient by {step_err}, the weights by "
+                             f"{worst} (scale {scale})")
+    return dict(loss_card=out["card"]["loss"], loss_cpu=out["cpu"]["loss"],
+                grad_norm_card=out["card"]["grad_norm"], grad_norm_cpu=norm,
+                grad_max_abs_diff=grad_err, grad_max=grad_max,
+                step_on_card_gradient_max_abs_diff=step_err,
+                weights_max_abs_diff=worst, weights_max_abs_diff_at_noise=worst_noisy,
+                weight_scale=scale, entries_beyond_tol=loose, entries=total)
+
+
+def phase_distill() -> dict:
+    """Score distillation as a user runs it (``python -m
+    matinvent_tpu_torch.tools.distill_mattergen``): the demo teacher, the
+    archived run's widths, ``DISTILL_STEPS`` steps on ``dataset.extxyz``, on
+    the card. One step card against CPU first; kernel 1 against its plain
+    version at the student sample's shapes; then the tool, with the launch
+    count read around each part: the training and the teacher-scored
+    sample launch nothing, the student's sample its plan (layers x 2 x T).
+    The held-out student beats the untrained net by 2x on every field and
+    the checkpoint loads through the port's suite."""
+    t0 = time.perf_counter()
+    a = DISTILL_ARGS
+    step = _distill_step_card_vs_cpu()
+    na = np.full(a["sample_check_n"], a["max_atoms"] // 2)
+    kernel = check_path_kernel([(na, a["max_atoms"])], a["hidden"], 10)
+    parts: dict = {}
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            before, t = fused_edge_chain.launches, time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            parts[name] = dict(launches=fused_edge_chain.launches - before,
+                               seconds=time.perf_counter() - t)
+            return out
+        return run
+
+    sample, teacher_sample = MatterGenDiffusion.sample, distill_tool.TeacherScoredDiffusion.sample
+    distill, heldout = distill_tool.distill, distill_tool.heldout_match
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_distill_"))
+    try:
+        distill_tool.distill = counted("train", distill)
+        distill_tool.heldout_match = counted("heldout", heldout)
+        distill_tool.TeacherScoredDiffusion.sample = counted("teacher_sample", teacher_sample)
+        MatterGenDiffusion.sample = lambda self, *args, **kwargs: (
+            sample(self, *args, **kwargs) if type(self) is not MatterGenDiffusion
+            else counted("student_sample", sample)(self, *args, **kwargs))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_edge_chain.launches = 0
+        t = time.perf_counter()
+        summary = distill_tool.main([f"{k}={v}" for k, v in a.items()] + [
+            "teacher=demo", f"corpus={DISTILL_CORPUS}", f"out={out}", f"steps={DISTILL_STEPS}"])
+        torch.cuda.synchronize()
+        tool_seconds = time.perf_counter() - t
+        launches = fused_edge_chain.launches
+        peak = torch.cuda.max_memory_allocated()
+        loaded = MatterGenSuite(model_path=str(out), device=DEV).load_model()
+    finally:
+        MatterGenDiffusion.sample, distill_tool.TeacherScoredDiffusion.sample = sample, teacher_sample
+        distill_tool.distill, distill_tool.heldout_match = distill, heldout
+        shutil.rmtree(out, ignore_errors=True)
+    plan = a["layers"] * 2 * a["timesteps"]
+    if (parts["student_sample"]["launches"] != plan or launches != plan
+            or parts["train"]["launches"] or parts["teacher_sample"]["launches"]
+            or parts["heldout"]["launches"]):
+        raise AssertionError(f"distill: {launches} launches in all, by part {parts}; plan {plan}")
+    m = summary["heldout_match"]
+    for field in ("cell", "pos", "type_kl"):
+        if not m["student_mse"][field] < 0.5 * m["untrained_baseline_mse"][field]:
+            raise AssertionError(f"distill: held-out {field} {m}")
+    if (loaded.config.hidden_dim, loaded.config.num_layers) != (a["hidden"], a["layers"]):
+        raise AssertionError(f"distill: the checkpoint loads as {loaded.config}")
+    rec = dict(phase="distill", settings=dict(a, steps=DISTILL_STEPS, teacher="demo"),
+               step_card_vs_cpu=step, kernel_vs_plain=kernel, kernel_launches=launches,
+               kernel_launches_train=parts["train"]["launches"],
+               kernel_launches_teacher_sample=parts["teacher_sample"]["launches"],
+               ms_per_step=1e3 * parts["train"]["seconds"] / DISTILL_STEPS,
+               peak_memory_bytes=peak, heldout_match=m,
+               sampled_statistics=summary["sampled_statistics"],
+               part_seconds={k: v["seconds"] for k, v in parts.items()},
+               tool_seconds=tool_seconds, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
+def phase_reward_ceiling() -> dict:
+    """The reward-ceiling tool's scoring on the card: ``magnetic_density``
+    and ``gap_bulk`` over the first ``CEILING_N`` designs, card against CPU
+    within ``CEILING_TOL`` per design, every scored reward finite and the
+    summary's statistics finite; heat capacity on ``CEILING_HEAT`` designs
+    of its pick through the bridge's worker on the card (its log names the
+    native backend): no NaN, each design held against JAX's record
+    (``phonon_check.heat_against_jax``: within 1e-3 or a named flip, and
+    the port's spectrum at JAX's equilibrated cell within 1e-3 of JAX's),
+    seconds per design."""
+    t0 = time.perf_counter()
+    structures, meta = ceiling_tool.design_space()
+    head, head_meta = structures[:CEILING_N], meta[:CEILING_N]
+    valid = ceiling_tool.valid_mask(head)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ceiling_"))
+    cwd = os.getcwd()
+    rewards = {}
+
+    def run(log):
+        os.chdir(work)
+        for name in CEILING_REWARDS:
+            scored = {}
+            for dev in (DEV, "cpu"):
+                reward, threshold = ceiling_tool.build_reward(name, dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                scored[dev] = ceiling_tool.score_all(reward, head, f"ceiling_{name}_{dev}")
+                torch.cuda.synchronize()
+                scored[f"{dev}_seconds"] = time.perf_counter() - t
+            (r, props, failed), (r_cpu, _, failed_cpu) = scored[DEV], scored["cpu"]
+            err = float(np.abs(np.asarray(r, float) - np.asarray(r_cpu, float)).max())
+            if err > CEILING_TOL or not np.array_equal(failed, failed_cpu):
+                raise AssertionError(f"reward_ceiling {name}: card vs CPU {err}")
+            summary = ceiling_tool.summarize(name, threshold, r, props, failed, valid, head_meta)
+            ok = ~np.asarray(failed)
+            if (summary["n_scored"] == 0 or not np.isfinite(np.asarray(r, float)[ok]).all()
+                    or not all(math.isfinite(summary[k]) for k in ("max", "p95"))):
+                raise AssertionError(f"reward_ceiling {name}: {summary}")
+            rewards[name] = dict(card_vs_cpu=err, summary=summary,
+                                 card_seconds=scored[f"{DEV}_seconds"],
+                                 cpu_seconds=scored["cpu_seconds"],
+                                 designs_per_second=CEILING_N / scored[f"{DEV}_seconds"])
+        pick = ceiling_tool.heat_capacity_pick(structures)[:CEILING_HEAT]
+        reward, _ = ceiling_tool.build_reward("heat_capacity", DEV)
+        t = time.perf_counter()
+        log.messages.clear()
+        r, props, failed = ceiling_tool.score_all(reward, [structures[i] for i in pick],
+                                                  "ceiling_heat_capacity")
+        heat_seconds = time.perf_counter() - t
+        if not any("backend: native" in msg for msg in log.messages):
+            raise AssertionError(f"reward_ceiling heat_capacity: worker log {log.messages}")
+        # the pick's first designs are the JAX record's first
+        against = heat_against_jax([structures[i] for i in pick], props["heat_capacity"],
+                                   range(len(pick)), DEV)
+        nan_share = float(np.mean(failed))
+        if nan_share or not against["ok"]:
+            raise AssertionError(f"reward_ceiling heat_capacity: NaN share {nan_share}, "
+                                 f"against JAX {against}")
+        rewards["heat_capacity"] = dict(
+            rewards=np.asarray(r, float).tolist(), nan_share=nan_share,
+            against_jax=against, seconds_per_design=heat_seconds / len(pick))
+
+    try:
+        _run_logged(run)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    rec = dict(phase="reward_ceiling", designs=len(structures), scored=CEILING_N,
+               rewards=rewards, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
 def instances(build_rec: dict, library: str, prefix: str) -> list[dict]:
     """The build's instances of ``library`` whose name starts with
     ``prefix``: registers, spills and shared memory of each."""
@@ -2562,6 +2851,9 @@ def main() -> int:
     phase_syn_score_train()
     alignn = phase_alignn()
     dp = phase_dp()
+    phase_convert()
+    distilled = phase_distill()
+    phase_reward_ceiling()
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     b = kern["buckets"]
     common = dict(route="cuda", impl="cuda", checked=True)
@@ -2589,6 +2881,10 @@ def main() -> int:
         # data-parallel rank's sample of its rows (its own plan)
         launches_alignn_main=alignn["main"]["kernel_launches"],
         launches_dp_per_rank=dp["kernel_launches_per_rank"],
+        # the distilled student's sample (its plan) and distillation's
+        # training (the plain net: 0)
+        launches_distill=distilled["kernel_launches"],
+        launches_distill_train=distilled["kernel_launches_train"],
         max_abs_err=kern["max_abs_err_f32"],
         max_abs_err_bf16=kern["max_abs_err_bf16"],
         # one layer-eval of the batch: the sum over the bucket shapes, f32

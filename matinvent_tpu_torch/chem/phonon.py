@@ -182,25 +182,35 @@ def scale_search(structure: Structure, device: torch.device) -> tuple[int | None
     generated cell is near the data manifold; the potential's deep
     small-volume collapse basin is an artifact to be avoided), then refined
     by ``GOLDEN_STEPS`` golden-section steps inside its bracket."""
+    k, s_opt, _ = scale_search_steps(structure, device)
+    return k, s_opt
+
+
+def scale_search_steps(structure: Structure, device: torch.device) -> tuple[int | None, float, list]:
+    """``scale_search`` with its golden-section steps: each decision
+    ``e1 < e2`` and its margin ``(e2 - e1) / max(|e1|, |e2|)`` (a margin at
+    f32 rounding is a decision another device may take the other way)."""
     scales = SCALE_GRID
     e = strain_energies(structure, scales, device)
     interior = np.where(
         (e[1:-1] < e[:-2]) & (e[1:-1] <= e[2:]) & np.isfinite(e[1:-1])
     )[0] + 1
     if interior.size == 0:
-        return None, 1.0
+        return None, 1.0, []
     k = int(interior[np.argmin(np.abs(scales[interior] - 1.0))])
     lo, hi = scales[k - 1], scales[k + 1]
     gr = (np.sqrt(5.0) - 1.0) / 2.0
+    steps = []
     for _ in range(GOLDEN_STEPS):
         m1 = hi - gr * (hi - lo)
         m2 = lo + gr * (hi - lo)
         e1, e2 = strain_energies(structure, np.array([m1, m2]), device)
+        steps.append((bool(e1 < e2), float((e2 - e1) / (max(abs(e1), abs(e2)) or 1.0))))
         if e1 < e2:
             hi = m2
         else:
             lo = m1
-    return k, (lo + hi) / 2.0
+    return k, (lo + hi) / 2.0, steps
 
 
 def equilibrate(
@@ -232,6 +242,35 @@ def equilibrate(
     return out
 
 
+def gamma_spectra(
+    structures: Sequence[Structure],
+    relaxer: SoftSphereRelaxer | None = None,
+    min_length: float = 8.0,
+    max_atoms: int = 160,
+    depth_eV: float = 0.3,
+    device: str | torch.device | None = None,
+) -> List[tuple[Structure, Structure, np.ndarray | None]]:
+    """(equilibrated structure, its supercell, Γ-point |ω| in rad/s) per
+    structure, the spectrum None where the cell is singular or the
+    eigenvalues do not converge: what ``gamma_heat_capacity`` sums over."""
+    dev = resolve_device(device)
+    out = []
+    for s in equilibrate(structures, relaxer, dev):
+        sc = supercell(s, choose_reps(s, min_length, max_atoms))
+        try:
+            omega = np.abs(gamma_frequencies(sc, depth_eV, dev))
+        except (np.linalg.LinAlgError, torch.linalg.LinAlgError) as err:
+            logging.warning(f"heat capacity: no spectrum for {s.composition}: {err}")
+            omega = None
+        out.append((s, sc, omega))
+    return out
+
+
+def supercell_mass(sc: Structure) -> float:
+    """The supercell's mass in amu."""
+    return float(np.sum(MASSES_AMU[np.asarray(sc.species)]))
+
+
 def gamma_heat_capacity(
     structures: Sequence[Structure],
     temperature: float = 300.0,
@@ -247,20 +286,12 @@ def gamma_heat_capacity(
     does not converge."""
     if not structures:
         return np.zeros(0)
-    dev = resolve_device(device)
-    out = []
-    for s in equilibrate(structures, relaxer, dev):
-        sc = supercell(s, choose_reps(s, min_length, max_atoms))
-        try:
-            omega = np.abs(gamma_frequencies(sc, depth_eV, dev))
-        except (np.linalg.LinAlgError, torch.linalg.LinAlgError) as err:
-            # a singular cell, or a spectrum that does not converge
-            logging.warning(f"heat capacity: no spectrum for {s.composition}: {err}")
-            out.append(float("nan"))
-            continue
-        mass = float(np.sum(MASSES_AMU[np.asarray(sc.species)]))
-        out.append(harmonic_heat_capacity(omega, mass, temperature))
-    return np.asarray(out)
+    return np.asarray([
+        float("nan") if omega is None
+        else harmonic_heat_capacity(omega, supercell_mass(sc), temperature)
+        for _, sc, omega in gamma_spectra(structures, relaxer, min_length, max_atoms, depth_eV,
+                                          device)
+    ])
 
 
 def soft_sphere_bulk_modulus(

@@ -32,8 +32,8 @@ from matinvent_tpu_torch.models.mattergen.diffusion import (
 from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
 from matinvent_tpu_torch.models.suite.base import ModelSuite
 from matinvent_tpu_torch.models.suite.mattergen_import import (
-    leaf_name_and_transpose,
     mattergen_params_from_state_dict,
+    mattergen_state_dict_from_params,
 )
 from matinvent_tpu_torch.models.suite.torch_import import load_torch_checkpoint
 from matinvent_tpu_torch.parallel.train import FinetuneStep
@@ -61,27 +61,9 @@ AVA_MODEL_NAMES = {
 _FLAT_LEAVES = ("edge_mlp_0",)
 
 
-def params_from_jax(params: Mapping[str, Any], prefix: str = "decoder.") -> dict[str, np.ndarray]:
-    """Flax params (nested dicts of arrays, optionally under ``'params'``)
-    -> a torch-layout state dict of float32 numpy arrays:
-    ``kernel`` -> ``weight`` (transposed), ``scale``/``embedding`` ->
-    ``weight``, ``X_kernel``/``X_bias`` -> ``X.weight`` (transposed) /
-    ``X.bias``; other leaves keep their path."""
-    if set(params) == {"params"}:
-        params = params["params"]
-    out: dict[str, np.ndarray] = {}
-
-    def walk(node: Mapping[str, Any], path: tuple[str, ...]) -> None:
-        for k, v in node.items():
-            if isinstance(v, Mapping):
-                walk(v, (*path, k))
-                continue
-            name, transpose = leaf_name_and_transpose((*path, k))
-            arr = np.asarray(v, dtype=np.float32)
-            out[prefix + name] = np.ascontiguousarray(arr.T if transpose else arr)
-
-    walk(params, ())
-    return out
+# flax params (nested dicts of arrays, optionally under ``'params'``) -> a
+# torch-layout state dict of float32 numpy arrays, by mattergen_import's rules
+params_from_jax = mattergen_state_dict_from_params
 
 
 def _flax_path(name: str, module: nn.Module) -> tuple[tuple[str, ...], bool]:
@@ -164,7 +146,8 @@ def load_weights(model: MatterGenDiffusion, model_path: str | Path) -> None:
     else:
         raise FileNotFoundError(
             f"no params.msgpack or *.ckpt under {model_path} — "
-            "convert checkpoints with tools/convert_mattergen_ckpt.py"
+            "convert checkpoints with python -m "
+            "matinvent_tpu_torch.tools.convert_mattergen_ckpt"
         )
     model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in weights.items()},
                           strict=True)

@@ -1,4 +1,4 @@
-"""MatterGen-class checkpoints: a torch-style state dict -> the flax
+"""MatterGen-class checkpoints: a torch-style state dict <-> the flax
 parameter tree (``matinvent_tpu/models/suite/mattergen_import.py``).
 
 The reference saves RL checkpoints as a torch container ``{"state_dict":
@@ -13,8 +13,10 @@ conventions, by these rules from the flax tree:
   {...}X_bias       -> {...}X.bias
   anything else     -> its path       (the null-condition embeddings)
 
-The map covers this framework's score network. The published MatterGen
-checkpoints wrap a GemNet-style network of another architecture, whose
+``mattergen_state_dict_from_params`` maps a flax tree to torch names and
+``mattergen_params_from_state_dict`` maps them back, each the exact inverse
+of the other. The map covers this framework's score network. The published
+MatterGen checkpoints wrap a GemNet-style network of another architecture, whose
 weights cannot be carried over: ``detect_gemnet`` recognizes them and
 ``mattergen_params_from_state_dict`` refuses them. Trees here are nested
 dicts of numpy arrays.
@@ -49,6 +51,29 @@ def leaf_name_and_transpose(path: tuple[str, ...]) -> tuple[str, bool]:
     return ".".join([*parents, last]), False
 
 
+def mattergen_state_dict_from_params(
+    params: Mapping[str, Any], prefix: str = "decoder."
+) -> dict[str, np.ndarray]:
+    """A flax parameter tree (nested dicts of arrays; a leading ``params``
+    collection key is dropped from the paths) as a torch-style state dict
+    of float32 numpy arrays, in JAX's leaf order (sorted keys)."""
+    out: dict[str, np.ndarray] = {}
+
+    def walk(node: Mapping[str, Any], path: tuple[str, ...]) -> None:
+        for k in sorted(node):
+            v = node[k]
+            if isinstance(v, Mapping):
+                walk(v, (*path, k))
+                continue
+            keys = (*path, k)
+            name, transpose = leaf_name_and_transpose(keys[1:] if keys[0] == "params" else keys)
+            arr = np.asarray(v, dtype=np.float32)
+            out[prefix + name] = np.ascontiguousarray(arr.T if transpose else arr)
+
+    walk(params, ())
+    return out
+
+
 def mattergen_params_from_state_dict(
     state_dict: Mapping[str, Any], template: Mapping[str, Any], prefix: str = "decoder."
 ) -> dict:
@@ -62,9 +87,10 @@ def mattergen_params_from_state_dict(
             "(external `mattergen` package weights). This framework's "
             "score network is a different architecture by design; weights "
             "cannot be mapped 1:1. Distill instead: "
-            "`python tools/distill_mattergen.py teacher=<last.ckpt> "
-            "corpus=<data.extxyz> out=<dir>` trains this network to match "
-            "the torch model's per-field scores across the time grid."
+            "`python -m matinvent_tpu_torch.tools.distill_mattergen "
+            "teacher=<last.ckpt> corpus=<data.extxyz> out=<dir>` trains this "
+            "network to match the torch model's per-field scores across the "
+            "time grid."
         )
     missing: list[str] = []
 

@@ -71,12 +71,27 @@ def warmup_cosine_lr(count: int, lr: float, warmup_steps: int, total_steps: int)
         c = f32(min(max(count, 0), warmup_steps))
         frac = f32(1.0) - c / f32(warmup_steps)
         return float(f32(0.0 - lr) * frac + f32(lr))
-    span = total_steps - warmup_steps
-    c = f32(min(count - warmup_steps, span))
+    return cosine_decay_lr(count - warmup_steps, lr, total_steps - warmup_steps,
+                           (lr * 0.02) / lr)
+
+
+def cosine_decay_lr(count: int, lr: float, decay_steps: int, alpha: float) -> float:
+    """optax's ``cosine_decay_schedule(lr, decay_steps, alpha)`` at
+    ``count``, in f32 as optax computes it."""
+    f32 = np.float32
+    c = f32(min(count, decay_steps))
     # the f32 cosine rounded from f64: the nearest to XLA's of numpy's and torch's
-    cosine = f32(0.5) * (f32(1.0) + f32(np.cos(np.float64(f32(np.pi) * c / f32(span)))))
-    alpha = (lr * 0.02) / lr
+    cosine = f32(0.5) * (f32(1.0) + f32(np.cos(np.float64(f32(np.pi) * c / f32(decay_steps)))))
     return float(f32(lr) * (f32(1.0 - alpha) * cosine + f32(alpha)))
+
+
+def adam_optimizer(params, lr: float, weight_decay: float = 0.0) -> torch.optim.Optimizer:
+    """optax's ``adam`` (b1 0.9, b2 0.999, eps 1e-8), or ``adamw`` with
+    decoupled decay on every parameter when ``weight_decay > 0``."""
+    if weight_decay > 0:
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=weight_decay)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 class PretrainTrainer:
@@ -111,11 +126,7 @@ class PretrainTrainer:
         return warmup_cosine_lr(count, self.lr, self.warmup_steps, self.total_steps)
 
     def optimizer(self) -> torch.optim.Optimizer:
-        params = self.diffusion.parameters()
-        if self.weight_decay > 0:
-            return torch.optim.AdamW(params, lr=self.learning_rate(0), betas=(0.9, 0.999),
-                                     eps=1e-8, weight_decay=self.weight_decay)
-        return torch.optim.Adam(params, lr=self.learning_rate(0), betas=(0.9, 0.999), eps=1e-8)
+        return adam_optimizer(self.diffusion.parameters(), self.learning_rate(0), self.weight_decay)
 
     def loss(self, batch: CrystalBatch, conditions=None, generator=None, draws=None,
              t=None, cond_mask=None):

@@ -1,6 +1,6 @@
 """The port stands alone: it imports torch, numpy, scipy and the standard
-library only, never JAX, flax, PyYAML, pandas, msgpack or ``matinvent_tpu``
-(the card machine has none of the first five), and ``chip_smoke.py`` fails
+library only, never JAX, flax, optax, PyYAML, pandas, msgpack or
+``matinvent_tpu`` (the card machine has none of the first six), and ``chip_smoke.py`` fails
 cleanly where it cannot run."""
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ ALLOWED = {"torch", "numpy", "scipy", "matinvent_tpu_torch"} | set(sys.stdlib_mo
 BLOCKER = textwrap.dedent(
     """
     import importlib.abc, importlib.machinery, sys
-    BLOCKED = {"jax", "jaxlib", "flax", "yaml", "pandas", "msgpack", "matinvent_tpu"}
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "pandas", "msgpack", "matinvent_tpu"}
 
     class Refuse(importlib.abc.Loader):
         def create_module(self, spec):
@@ -97,8 +97,11 @@ def _imports(path: Path) -> set[str]:
 # where it is importable
 MLIP_DIR = PACKAGE / "rewards" / "calculators" / "mlip"
 MLIP_STACK = {"quacc", "ase"}
-# the wandb logger imports wandb where it is installed (it raises where not)
-OPTIONAL = {PACKAGE / "pipeline" / "logger.py": {"wandb"}}
+# the wandb logger imports wandb where it is installed (it raises where not);
+# distillation's teacher builder for published GemNet checkpoints imports the
+# external mattergen package and hydra (it raises JAX's ImportError where not)
+OPTIONAL = {PACKAGE / "pipeline" / "logger.py": {"wandb"},
+            PACKAGE / "tools" / "distill_mattergen.py": {"hydra", "mattergen"}}
 
 
 def test_ast_imports_are_torch_numpy_and_stdlib_only():
@@ -220,3 +223,51 @@ def test_alignn_dft_and_mesh_import_alone_and_load_weights_only_first(tmp_path):
     ))
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "late modules ok" in proc.stdout
+
+
+# the tools ported from the JAX package's tools/ in the last slices
+TOOL_MODULES = [
+    "matinvent_tpu_torch.tools.convert_mattergen_ckpt",
+    "matinvent_tpu_torch.tools.distill_mattergen",
+    "matinvent_tpu_torch.tools.reward_ceiling",
+]
+
+
+def test_tool_modules_import_alone_and_refuse_to_start_without_a_card():
+    """Each tool imports with JAX, flax, optax, PyYAML and the JAX package
+    blocked, and imports none of them; run as a user runs it without
+    ``device=cpu``, each needs the card and says so."""
+    for name in TOOL_MODULES:
+        path = PACKAGE / Path(*name.split(".")[1:]).with_suffix(".py")
+        assert _imports(path) <= ALLOWED | OPTIONAL.get(path, set()), name
+    proc = _run(textwrap.dedent(
+        f"""
+        import importlib, runpy
+        for name in {TOOL_MODULES!r}:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("imported")
+        """
+    ))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "imported" in proc.stdout
+    args = {
+        "convert_mattergen_ckpt": ["to_torch", "in=experiments/results/pretrained_mattergen_t1000",
+                                   "out=never_written"],
+        "distill_mattergen": ["teacher=demo", "out=never_written"],
+        "reward_ceiling": ["rewards=magnetic_density", "out=never_written/x.json"],
+    }
+    for name in TOOL_MODULES:
+        short = name.rsplit(".", 1)[1]
+        proc = _run(textwrap.dedent(
+            f"""
+            import runpy, torch
+            torch.cuda.is_available = lambda: False
+            sys.argv = [{short!r}] + {args[short]!r}
+            runpy.run_module({name!r}, run_name="__main__")
+            """
+        ))
+        assert proc.returncode != 0, name
+        assert "CUDA is not available" in proc.stderr, proc.stderr
+        assert not (ROOT / "never_written").exists()
