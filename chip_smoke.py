@@ -17,7 +17,16 @@ launch counts set to 0 just before and read just after:
   through both edge paths (phase ``score_net``), then 256 crystals at
   T=1000 through the user entry point (``MatterGenSampler`` ->
   ``MatterGenDiffusion.sample_bucketed``), which launches the edge kernel,
-  beside the plain edge path (phase ``sampling``);
+  beside the plain edge path on the same buckets and draws for the first
+  10 steps, each bucket's state there against the kernel run's (phase
+  ``sampling``);
+* the edge kernel's wide route in the sampler (phase ``edge_shapes``),
+  f32, T=50, random weights from a seed scaled by 0.02: an h384/L6 model
+  (no tiled instance's width) sampling 32 crystals in 2 buckets, and an
+  h256/L6 model at ``max_atoms`` 72 in 3 buckets whose cap-72 bucket takes
+  the wide route; every bucket launches as the plan says, its first
+  score-net eval against the plain net and its final crystals against a
+  plain-net run on the same draws;
 * the fine-tune (phase ``finetune``): one chunk of ``rl_chunk_loss`` at full
   width on the ``rl_hhi_rich5`` start checkpoint (16 crystals x 25
   timesteps, draws made by numpy), its loss and gradients held against the
@@ -43,15 +52,19 @@ launch counts set to 0 just before and read just after:
   property predictors, their ten tasks and SynScore on the card, held
   against the JAX package's values
   (``matinvent_tpu_torch/experiments/results/reward_models_jax.json``),
-  their time per call at batch 64 and 512, and 20 ``PredictorTrainer``
-  steps at full width, the first against the CPU;
+  their time per call at batch 64 and 512, 20 ``PredictorTrainer``
+  steps at full width, the first against the CPU, and
+  ``tools.train_predictor`` for 300 steps on the card, its checkpoint
+  reloaded on the card and on the CPU;
 * two RL iterations of the ``rl_mag_rich_dense`` recipe (phase
   ``rl_mag``), rewarded by the magnetic-density predictor on the card;
 * the DiffCSP family (phase ``diffcsp``): the in-repo checkpoint
   ``experiments/results/pretrained`` loaded by ``DiffCSPSuite``, its f32
   score net on the card against the CPU, 128 crystals sampled at T=1000
   (``max_atoms`` 8, ``sample_clip`` 30) with their validity shares, and one
-  reward-weighted iteration of the ``diffcsp_hhi`` recipe;
+  reward-weighted iteration of the ``diffcsp_hhi`` recipe; the score net
+  with ``ip=False``, ``use_dis_emb=False`` and both (random weights at
+  h128/L4) on the card against the CPU;
 * DDPO (phases ``ddpo_diffcsp`` and ``ddpo_mattergen``): two iterations of
   ``rl_hhi_ddpo`` and of ``rl_hhi_ddpo_mattergen_t1000``; in iteration 0
   the replay of the recorded trajectory at the recording weights must give
@@ -67,8 +80,8 @@ launch counts set to 0 just before and read just after:
   structure, peak memory and NaN share on the card;
 * two RL iterations of ``rl_heat_capacity_t1000`` (phase ``rl_heat``):
   128 crystals of ``pretrained_mattergen_t1000`` through the edge kernel
-  (8,000 launches each), scored by the MLIP bridge's heat-capacity worker
-  on the card;
+  (2,000 launches each on a 250-step grid), scored by the MLIP bridge's
+  heat-capacity worker on the card;
 * CSP mode (phase ``csp``): 64 crystals of two fixed compositions at
   T=1000 through the kernel, their types equal to the compositions;
 * knn edges (phase ``knn``): the same checkpoint with ``edge_style: knn``,
@@ -80,7 +93,7 @@ launch counts set to 0 just before and read just after:
   matinvent_tpu_torch.main`` with ``model=mattergen`` from the start
   checkpoint, ``reward=hhi`` and ``configs/``'s defaults for one iteration
   (phase ``main``), the same with ``pipeline=baseline`` (phase
-  ``baseline``: the agent bit-equal afterwards), and ``gen_eval`` at 2 x 64
+  ``baseline``: the agent bit-equal afterwards), and ``gen_eval`` at 1 x 64
   crystals with the 1024 record's arguments (phase ``gen_eval``); each
   launches the edge kernel as the sampler's plan says (one padded batch:
   12,000 launches per call);
@@ -101,8 +114,9 @@ launch counts set to 0 just before and read just after:
 * data parallel (phase ``dp``): the entry point in a child process that
   joins a one-rank NCCL group from ``MATINVENT_COORDINATOR``; then two
   ``gloo`` ranks on the card (``experiments/dp_check.py``) sampling their
-  rows of 64 DiffCSP and 64 MatterGen crystals at T=1000 and running one
-  MatterGen DDPO update, each gathered result against one process (the
+  rows of 64 DiffCSP crystals at T=1000 and 64 MatterGen crystals on a
+  250-step grid and running one MatterGen DDPO update, each gathered
+  result against one process (the
   recorded trajectories' first steps against the whole batch), each
   rank's edge-kernel launches against its plan and the kernel against its
   plain version at each rank's shapes;
@@ -129,6 +143,7 @@ directories that it removes.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import ctypes
 import json
 import logging
@@ -155,7 +170,7 @@ from matinvent_tpu_torch.chem.matcher import (
 )
 from matinvent_tpu_torch.chem.proxy_labels import label_structures
 from matinvent_tpu_torch.chem.relax import SoftSphereRelaxer
-from matinvent_tpu_torch.chem.structure import Structure, read_extxyz
+from matinvent_tpu_torch.chem.structure import Structure, read_extxyz, save_extxyz
 from matinvent_tpu_torch.chem.validity import cell_size_ok, smact_valid, structure_validity
 from matinvent_tpu_torch.csrc.build import build, build_host
 from matinvent_tpu_torch.experiments import dp_check, fused_edge_ab, fused_edge_flat
@@ -168,18 +183,32 @@ from matinvent_tpu_torch.experiments.timing import (
     nbytes,
     time_ms,
 )
-from matinvent_tpu_torch.models.cspnet import sinusoids_embedding
+from matinvent_tpu_torch.models.cspnet import CSPNet, sinusoids_embedding
 from matinvent_tpu_torch import gen_eval as entry_gen_eval
 from matinvent_tpu_torch import main as entry_main
-from matinvent_tpu_torch.models.mattergen.diffusion import MatterGenDiffusion, MGNoised, NoiseDraws
+from matinvent_tpu_torch.models.mattergen.diffusion import (
+    MatterGenConfig,
+    MatterGenDiffusion,
+    MGNoised,
+    NoiseDraws,
+)
 from matinvent_tpu_torch.models.diffcsp import DiffCSPDiffusion, NoisedInput, sinusoidal_time_embedding
 from matinvent_tpu_torch.models.diffcsp import NoiseDraws as CSPNoiseDraws
-from matinvent_tpu_torch.models.mattergen.sample import MatterGenSampler
+from matinvent_tpu_torch.models.mattergen.sample import (
+    MatterGenSampler,
+    register_num_atoms_distribution,
+)
 from matinvent_tpu_torch.models.sample import DiffCSPSampler, batch_to_structures
 from matinvent_tpu_torch.models.suite.diffcsp import DiffCSPSuite
 from matinvent_tpu_torch.models.suite.mattergen import load_config as mattergen_config
 from matinvent_tpu_torch.models.suite.mattergen import MatterGenSuite, load_model
-from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain, fused_edge_chain_plain
+from matinvent_tpu_torch.ops.fused_edge import (
+    fused_edge_chain,
+    fused_edge_chain_plain,
+    kernel_takes,
+    tiled,
+    wide_smem_bytes,
+)
 from matinvent_tpu_torch.parallel.pretrain import PretrainTrainer, structures_to_batches
 from matinvent_tpu_torch.parallel.mesh import Mesh
 from matinvent_tpu_torch.parallel.train import FinetuneStep
@@ -198,6 +227,7 @@ from matinvent_tpu_torch.tools import convert_mattergen_ckpt as convert_tool
 from matinvent_tpu_torch.tools import distill_mattergen as distill_tool
 from matinvent_tpu_torch.tools import pretrain as pretrain_tool
 from matinvent_tpu_torch.tools import reward_ceiling as ceiling_tool
+from matinvent_tpu_torch.tools import train_predictor as train_predictor_tool
 from matinvent_tpu_torch.tools import train_syn_score
 from matinvent_tpu_torch.utils.checkpoint import load_run_state
 from matinvent_tpu_torch.utils.config import load_config, read_flat_yaml
@@ -231,6 +261,8 @@ PRED_TOL, SYN_TOL = 1e-4, 1e-6
 PRED_BATCHES, PRED_REPEATS = (64, 512), 7
 # the trainer: 20 steps at H=128/L=4, batch 64, proxy labels of the corpus
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_MODEL = 20, 64, "mp_total_mag_per_atom"
+# then ``tools.train_predictor`` for TOOL_STEPS steps on the same structures
+TOOL_STEPS = 300
 RL_MAG_METRICS = ROOT / "experiments/results/rl_mag_rich_dense/metrics.csv"
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 # the DiffCSP family: the in-repo checkpoint, sampled as the DDPO recipes
@@ -241,18 +273,27 @@ DIFFCSP_BATCH, DIFFCSP_MAX_ATOMS, DIFFCSP_CLIP, NET_TOL = 128, 8, 30.0, 2e-4
 # DDPO: the replay at the recording weights, mean ratio within 1e-5 of 1
 RATIO_TOL = 1e-5
 # the heat-capacity and conditional-DDPO recipes' MatterGen checkpoint
-# (h128/L4, T=1000); CSP mode's two compositions and batch; knn's batch
+# (h128/L4, T=1000); CSP mode's two compositions and batch; knn's batch.
+# Its chains in phases rl_heat, knn, ddpo_mattergen, ddpo_cond and dp (and
+# the chains of rl_async, rl_mag and the conditional checkpoint's) run on a
+# MG_STEPS-step grid of their continuous-time SDEs, for the smoke's time
+# limit: every check of those phases is independent of the grid's length.
+# csp keeps T=1000, as does DiffCSP's discrete schedule
 MG_T1000 = ROOT / "experiments/results/pretrained_mattergen_t1000"
+MG_STEPS = 250
+MG_STEPS_SETS = [f"model.config_overrides.timesteps={MG_STEPS}",
+                 f"model.finetune_cfg.timesteps={MG_STEPS}"]
 CSP_COMPOSITIONS = [{"Na": 4, "Cl": 4}, {"Ti": 2, "O": 4}]
 CSP_BATCH, KNN_BATCH = 64, 64
 # phase relax_phonon: corpus structures, and the supercell budget of the
 # card-against-CPU comparison of C_v on structures as given
 PHONON_CORPUS, PHONON_SUPERCELL = 32, 32
 # the config-driven entry points: ``main``/``Baseline`` with configs/'
-# defaults (base OptFilter, 64 samples); gen_eval 2 x 64 crystals
+# defaults (base OptFilter, 64 samples); gen_eval 1 x 64 crystals (for the
+# smoke's time limit)
 MAIN_ARGS = ["model=mattergen", f"model.model_path={START}", "reward=hhi", "rl_epoch=1",
              "eval_size=16"]
-GEN_EVAL_BATCH, GEN_EVAL_BATCHES = 64, 2
+GEN_EVAL_BATCH, GEN_EVAL_BATCHES = 64, 1
 # pretraining: configs/model/diffcsp.yaml's width on corpus_r5; MatterGen's
 # step at the start checkpoint's h256/L6. Card vs CPU on the same draws,
 # both f32 (TF32 off): the loss and the gradient norm within the net's own
@@ -302,12 +343,37 @@ DISTILL_ARGS = dict(hidden=128, layers=4, timesteps=100, batch=64, max_atoms=8, 
                     sample_check_n=32)
 DISTILL_STEPS, DISTILL_LOSS_TOL, DISTILL_WEIGHT_TOL = 200, 1e-4, 1e-6
 DISTILL_GRAD_TOL = 1e-4
-# the reward ceiling: the predictor rewards over the first CEILING_N designs,
-# card against CPU within 1e-5 (rewards lie in [0, 1]); heat capacity on
-# CEILING_HEAT designs of its pick through the bridge's worker, against JAX's
+# the reward ceiling: the predictor rewards over the first CEILING_N designs
+# on the card, the first CEILING_CPU of them (for the smoke's time limit)
+# against the CPU within 1e-5 (rewards lie in [0, 1]); heat capacity on
+# CEILING_HEAT designs of its pick through the bridge's worker, against
+# JAX's
 CEILING_REWARDS, CEILING_N, CEILING_TOL, CEILING_HEAT = ("magnetic_density", "gap_bulk"), 2048, 1e-5, 8
+CEILING_CPU = 512
+# phase edge_shapes: MatterGen models of random weights (seeded, scaled by
+# EDGE_SHAPES_SCALE as the CPU tests scale theirs, so the chains stay
+# finite), f32, at shapes the kernel's tiled instances do not take, which
+# its wide route runs: (name, hidden, max_atoms, crystals, buckets,
+# histogram over atom counts); h384/L6 in 2 buckets (every bucket on the
+# wide route), h256/L6 at max_atoms 72 in 3 buckets, the last capped above
+# 64 (it alone on the wide route). Every bucket launches the kernel as the
+# plan says. T is cut to 50 for time. Each bucket's first score-net eval
+# against the plain net within NET_TOL of max(1, scale), and its final
+# crystals against a plain-net run on the same draws: atom types equal,
+# fractional coordinates (circular) and lattices within EDGE_SHAPES_TOL
+EDGE_SHAPES_T, EDGE_SHAPES_SEED, EDGE_SHAPES_SCALE, EDGE_SHAPES_TOL = 50, 4, 0.02, 1e-3
+EDGE_SHAPES_RUNS = [
+    ("h384", 384, 20, 32, 2, {4: 1.0, 6: 1.0, 8: 1.0, 12: 1.0, 16: 1.0, 20: 1.0}),
+    ("cap72", 256, 72, 32, 3, {**{n: 1.0 for n in range(4, 13)}, **{n: 1.0 for n in range(30, 41)},
+                               **{n: 1.0 for n in range(66, 73)}}),
+]
 DEV = "cuda"
 BATCH, BUCKETS, MAX_ATOMS, SEED = 256, 4, 20, 0
+# phase sampling's plain edge path runs the kernel run's bucket plan and
+# draws for its first steps only (for the smoke's time limit), held there
+# as phase dp holds its prefix: early states, before the chain amplifies
+# rounding
+SAMPLING_PREFIX = 10
 SOURCES = ("fused_edge", "edge_flat")  # csrc/<name>.cu
 HOST_SOURCES = ("charge_balance", "structure_fit")  # csrc/<name>.cpp, g++
 # (crystals, cap) of the harness kernels' checks: the harnesses' full width
@@ -431,12 +497,16 @@ _EDGE_MODE = {("0", "1", "1"): "full", ("1", "1", "1"): "nosin", ("0", "0", "0")
 
 
 def instance_name(mangled: str) -> str:
-    """``fused_edge <mode> <dtype> H=<H>``, ``edge_flat bf16 H=256``, or the
-    mangled name of an instance nvcc reported."""
+    """``fused_edge <mode> <dtype> H=<H>``, ``fused_edge full wide
+    <dtype>``, ``edge_flat bf16 H=256``, or the mangled name of an instance
+    nvcc reported."""
     m = _EDGE_INSTANCE.search(mangled)
     if m:
         dtype = "bf16" if m.group(1) != "f" else "f32"
         return f"fused_edge {_EDGE_MODE[m.group(3, 4, 5)]} {dtype} H={m.group(2)}"
+    m = re.search(r"fused_edge_wide_kernelI(13__nv_bfloat16|f)E", mangled)
+    if m:
+        return f"fused_edge full wide {'bf16' if m.group(1) != 'f' else 'f32'}"
     m = re.search(r"edge_flat_kernelILi(\d+)E", mangled)
     return f"edge_flat bf16 H={m.group(1)}" if m else mangled
 
@@ -466,7 +536,8 @@ def _smem_query(name: str, lib):
     if name == "edge_flat":
         return lambda inst: lib.edge_flat_smem_bytes()
     lib.fused_edge_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    return lambda inst: lib.fused_edge_smem_bytes(
+    # the wide route's depends on the shape (phase edge_shapes reads it)
+    return lambda inst: None if " wide " in inst else lib.fused_edge_smem_bytes(
         int(inst.rsplit("H=", 1)[1]), int(" bf16 " in inst)
     )
 
@@ -704,33 +775,277 @@ def sample_once(model, fused_edge: bool):
     return seconds, int(structure_validity(batch).sum().item())
 
 
+class PrefixStates:
+    """While active, keeps each bucket's state (cell, coordinates, types;
+    by its cap) and atom mask after the first ``steps`` grid steps of
+    ``model``'s sampling; with ``stop`` it ends the sampling there once
+    every cap of ``caps`` has its state (the exit swallows that stop)."""
+
+    class Stop(Exception):
+        pass
+
+    def __init__(self, model, steps: int, caps, stop: bool = False):
+        self.model, self.steps, self.caps, self.stop = model, steps, set(caps), stop
+        self.states = {}
+
+    def __enter__(self):
+        step = self.model._sample_step
+
+        def kept(carry, i, *args, **kwargs):
+            out = step(carry, i, *args, **kwargs)
+            if i == self.steps - 1:
+                mask = kwargs["mask"]
+                self.states[int(mask.shape[1])] = (tuple(x.clone() for x in out[0]), mask.clone())
+                if self.stop and set(self.states) == self.caps:
+                    raise PrefixStates.Stop
+            return out
+
+        self.model._sample_step = kept
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        del self.model._sample_step  # the instance attribute: the method again
+        return exc_type is PrefixStates.Stop
+
+
+def prefix_gaps(got: dict, ref: dict) -> dict:
+    """Per bucket (cap): the largest gap of the cells over max(1, scale),
+    of the real atoms' fractional coordinates (circular) and the real
+    atoms' type flips, between two ``PrefixStates.states``."""
+    gaps = {}
+    for cap, ((cell, pos, types), mask) in got.items():
+        (rcell, rpos, rtypes), _ = ref[cap]
+        d = (pos - rpos)[mask]
+        gaps[cap] = dict(
+            cell=float((cell - rcell).abs().max()) / max(1.0, float(rcell.abs().max())),
+            frac_coords=float((d - torch.round(d)).abs().max()),
+            type_flips=int((types != rtypes)[mask].sum()))
+    return gaps
+
+
 def phase_sampling(model) -> dict:
     """256 crystals at T=1000 in the model's ``sample_dtype`` through the
-    kernel (every launch counted) and through the plain edge path; the
-    valid shares agree within 4 sigma."""
+    kernel (every launch counted), and the plain edge path on the same
+    bucket plan and draws for the first ``SAMPLING_PREFIX`` steps: each
+    bucket's state there against the kernel run's. f32: within
+    ``DP_PREFIX_TOL`` of scale and no type flip. bf16: within twice the
+    plain path's own bf16-against-f32 gap over those steps (at least
+    ``DP_PREFIX_TOL``), type flips at most twice the plain path's."""
     c = model.config
     counts, caps = bucket_shapes()
     if len(caps) != BUCKETS:
         raise AssertionError(f"expected {BUCKETS} buckets, got caps {caps}")
-    expected = c.num_layers * (1 + c.n_corrector) * c.timesteps * len(caps)
+    expected = model.planned_launches() * len(caps)
     fused_edge_chain.launches = 0
-    seconds, valid = sample_once(model, fused_edge=True)
+    with PrefixStates(model, SAMPLING_PREFIX, caps) as kernel:
+        seconds, valid = sample_once(model, fused_edge=True)
     launches = fused_edge_chain.launches
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
-    plain_seconds, plain_valid = sample_once(model, fused_edge=False)
-    p1, p2 = valid / BATCH, plain_valid / BATCH
-    pooled = (valid + plain_valid) / (2 * BATCH)
-    sigma = math.sqrt(pooled * (1 - pooled) * 2 / BATCH)
-    if abs(p1 - p2) > 4 * sigma:
-        raise AssertionError(f"valid share kernel {p1} vs plain {p2}: beyond 4 sigma {sigma}")
+    t0 = time.perf_counter()
+    with PrefixStates(model, SAMPLING_PREFIX, caps, stop=True) as plain:
+        sample_once(model, fused_edge=False)
+    plain_seconds = time.perf_counter() - t0
+    gaps = prefix_gaps(kernel.states, plain.states)
+    if c.sample_dtype == "float32":
+        tol = {cap: dict(cell=DP_PREFIX_TOL, frac_coords=DP_PREFIX_TOL, type_flips=0)
+               for cap in caps}
+    else:
+        # the plain path in f32 on the same draws, for its own bf16 spread
+        model.config = dataclasses.replace(c, sample_dtype="float32")
+        try:
+            with PrefixStates(model, SAMPLING_PREFIX, caps, stop=True) as f32:
+                sample_once(model, fused_edge=False)
+        finally:
+            model.config = c
+        spread = prefix_gaps(plain.states, f32.states)
+        tol = {cap: {k: max(2 * v, DP_PREFIX_TOL) if k != "type_flips" else 2 * v
+                     for k, v in spread[cap].items()} for cap in caps}
+    if sorted(gaps) != sorted(caps) or any(
+            gaps[cap][k] > tol[cap][k] for cap in caps for k in gaps[cap]):
+        raise AssertionError(f"kernel vs plain after {SAMPLING_PREFIX} steps: {gaps} > {tol}")
     rec = dict(
         phase="sampling", batch=BATCH, timesteps=c.timesteps, caps=caps,
         crystals=[len(x) for x in counts], dtype=c.sample_dtype,
         kernel_launches=launches, seconds=seconds, structures_per_s=BATCH / seconds,
-        valid_share=p1, plain_seconds=plain_seconds, plain_valid_share=p2,
-        four_sigma=4 * sigma,
+        valid_share=valid / BATCH, prefix_steps=SAMPLING_PREFIX, prefix_gaps=gaps,
+        prefix_tol=tol, plain_prefix_seconds=plain_seconds,
     )
+    emit(rec)
+    return rec
+
+
+class FirstEvals:
+    """While active, records the first score-net eval of each bucket (by
+    its cap) that ``model`` makes: its inputs, whether it ran the edge
+    kernel, and its outputs."""
+
+    def __init__(self, model):
+        self.model, self.evals = model, {}
+
+    def __enter__(self):
+        apply_net = self.orig = self.model.apply_net
+
+        def recorded(noised, num_atoms, mask, *args, **kwargs):
+            out = apply_net(noised, num_atoms, mask, *args, **kwargs)
+            cap = int(mask.shape[1])
+            if cap not in self.evals:
+                self.evals[cap] = dict(
+                    inputs=(MGNoised(*(x.clone() for x in noised)), num_atoms.clone(), mask.clone()),
+                    fused_edge=bool(kwargs.get("fused_edge")),
+                    out={k: v.clone() for k, v in out.items()})
+            return out
+
+        self.model.apply_net = recorded
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.apply_net  # the instance attribute: the method again
+
+
+class BucketOutputs:
+    """While active, keeps the per-bucket crystals that
+    ``MatterGenDiffusion.sample_bucketed`` returns (``outputs``, in call
+    order)."""
+
+    def __enter__(self):
+        self.outputs = []
+        self._orig = bucketed = MatterGenDiffusion.sample_bucketed
+
+        def kept(model, *args, **kwargs):
+            out = bucketed(model, *args, **kwargs)
+            self.outputs.append(out)
+            return out
+
+        MatterGenDiffusion.sample_bucketed = kept
+        return self
+
+    def __exit__(self, *exc):
+        MatterGenDiffusion.sample_bucketed = self._orig
+
+
+def time_path_kernel(plans, H: int, nf: int) -> dict:
+    """``fused_edge_chain`` at a path's bucket shapes (random card inputs
+    padded as the path pads them): per dtype the summed device time of one
+    layer-eval over the buckets, launched from Python, of the plain version
+    and of the chain of PyTorch ops, and the bound of the same work."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    row = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        keys = ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms")
+        acc = dict.fromkeys(keys, 0.0)
+        for na, cap in plans:
+            num_atoms = torch.as_tensor(na, device=DEV)
+            args, _ = edge_inputs(len(na), cap, H, nf, dtype, gen, num_atoms)
+            acc["ms"] += time_ms(lambda: fused_edge_chain(*args, num_freqs=nf), 50)
+            acc["eager_ms"] += eager_ms(lambda: fused_edge_chain(*args, num_freqs=nf), 50)
+            acc["plain_ms"] += time_ms(lambda: fused_edge_chain_plain(*args, num_freqs=nf), 10)
+            acc["library_ms"] += time_ms(lambda: library_chain(args, nf), 10)
+            b, row[f"{tag}_bound_by"] = bound(args, num_atoms, nf)
+            acc["bound_ms"] += b
+        row.update({f"{tag}_{k}": v for k, v in acc.items()})
+    return row
+
+
+def phase_edge_shapes() -> dict:
+    """The edge kernel's wide route in the sampler, on the card, for each of
+    ``EDGE_SHAPES_RUNS``: every bucket launches the kernel as the plan says
+    (``planned_launches``; the route follows the bucket's shape), each
+    bucket's first score-net eval ran the kernel and matches the plain net
+    on the same inputs within ``NET_TOL`` of max(1, scale), the chains stay
+    finite, and each bucket's final crystals match those of a plain-net run
+    on the same draws (``EDGE_SHAPES_TOL``); the kernel is held against its
+    plain version at the buckets' shapes, and timed there."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name, hidden, max_atoms, n, buckets, hist in EDGE_SHAPES_RUNS:
+        register_num_atoms_distribution(f"edge_shapes_{name}", hist)
+        torch.manual_seed(EDGE_SHAPES_SEED)
+        model = MatterGenDiffusion(MatterGenConfig(hidden_dim=hidden, num_layers=6,
+                                                   timesteps=EDGE_SHAPES_T), device=DEV).eval()
+        with torch.no_grad():
+            for prm in model.parameters():
+                prm.mul_(EDGE_SHAPES_SCALE)
+        nf = model.config.num_freqs
+
+        def sampler(fused):
+            return MatterGenSampler(batch_size=n, num_batches=1, max_atoms=max_atoms,
+                                    num_atoms_distribution=f"edge_shapes_{name}",
+                                    size_buckets=buckets, seed=EDGE_SHAPES_SEED, fused_edge=fused)
+
+        torch.cuda.synchronize()
+        fused_edge_chain.launches = 0
+        with SampleCalls() as calls, FirstEvals(model) as first, BucketOutputs() as kept:
+            t = time.perf_counter()
+            sampler(True).launch(model)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+        launches = fused_edge_chain.launches
+        with BucketOutputs() as kept_plain:
+            t = time.perf_counter()
+            sampler(False).launch(model)
+            torch.cuda.synchronize()
+            plain_seconds = time.perf_counter() - t
+        plans, evals = calls.plans, first.evals
+        caps = [cap for _, cap in plans]
+        wide = [not tiled(hidden, cap, 6 * nf) for cap in caps]
+        expected = model.planned_launches() * len(caps)
+        if len(caps) != buckets or launches != expected or len(kept.outputs) != 1:
+            raise AssertionError(f"edge_shapes {name}: caps {caps}, {launches} launches, "
+                                 f"plan {expected}")
+        if not all(kernel_takes(hidden, cap, nf, torch.float32) for cap in caps) or (
+                wide != ([True] * buckets if name == "h384" else [False] * (buckets - 1) + [True])):
+            raise AssertionError(f"edge_shapes {name}: caps {caps}, wide route {wide}")
+        first_errs, final_errs = {}, {}
+        for bi, (cap, got, ref) in enumerate(zip(caps, kept.outputs[0], kept_plain.outputs[0])):
+            ev = evals[cap]
+            if not ev["fused_edge"]:
+                raise AssertionError(f"edge_shapes {name}: cap {cap} ran the plain net")
+            with torch.no_grad():
+                plain = model.apply_net(*ev["inputs"], fused_edge=False)
+            mask = ev["inputs"][2]
+            first_errs[cap] = {}
+            for k, r in plain.items():
+                g = ev["out"][k]
+                if r.shape[:2] == mask.shape:
+                    g, r = g[mask], r[mask]
+                scale = max(1.0, float(r.abs().max()))
+                first_errs[cap][k] = float((g - r).abs().max()) / scale
+                if not torch.isfinite(g).all() or first_errs[cap][k] > NET_TOL:
+                    raise AssertionError(f"edge_shapes {name} cap {cap} {k}: first eval vs "
+                                         f"plain {first_errs[cap][k]} of scale")
+            m = torch.arange(cap, device=DEV)[None, :] < got.num_atoms[:, None]
+            finite = bool(torch.isfinite(got.frac_coords).all() and torch.isfinite(got.lattice).all())
+            fd = (got.frac_coords - ref.frac_coords)[m]
+            final_errs[cap] = dict(
+                finite=finite,
+                types_equal=bool(torch.equal(got.atom_types[m], ref.atom_types[m])),
+                frac_coords=float((fd - torch.round(fd)).abs().max()),
+                lattice_of_scale=float((got.lattice - ref.lattice).abs().max())
+                / max(1.0, float(ref.lattice.abs().max())))
+            e = final_errs[cap]
+            if not (finite and e["types_equal"] and e["frac_coords"] <= EDGE_SHAPES_TOL
+                    and e["lattice_of_scale"] <= EDGE_SHAPES_TOL):
+                raise AssertionError(f"edge_shapes {name} bucket {bi} (cap {cap}): final "
+                                     f"crystals vs the plain run {e}")
+        kernel = check_path_kernel(plans, hidden, nf)
+        timing = time_path_kernel(
+            [pl for pl, w in zip(plans, wide) if w], hidden, nf)
+        runs[name] = dict(hidden=hidden, layers=6, timesteps=EDGE_SHAPES_T, crystals=n,
+                          caps=caps, wide_route=wide, kernel_launches=launches,
+                          expected_launches=expected, first_eval_vs_plain_of_scale=first_errs,
+                          final_vs_plain=final_errs, kernel_vs_plain=kernel,
+                          wide_buckets_timing=timing, sample_seconds=seconds,
+                          plain_sample_seconds=plain_seconds)
+        del model
+    lib = build("fused_edge").lib
+    lib.fused_edge_wide_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem = {h: lib.fused_edge_wide_smem_bytes(h, 60) for h in (256, 384)}
+    if smem != {h: wide_smem_bytes(h, 60) for h in smem}:
+        raise AssertionError(f"wide route's shared memory {smem} != the rule's")
+    rec = dict(phase="edge_shapes", runs=runs, tol=NET_TOL, final_tol=EDGE_SHAPES_TOL,
+               weight_scale=EDGE_SHAPES_SCALE, wide_smem_bytes=smem,
+               seconds=time.perf_counter() - t0)
     emit(rec)
     return rec
 
@@ -848,8 +1163,7 @@ def phase_validity(model) -> dict:
               size_buckets=BUCKETS, seed=VALIDITY_SEED)
     plan = MatterGenSampler(**kw)
     cuts, caps = plan.bucket_plan(plan._draw_num_atoms(VALIDITY_BATCH))
-    c = model.config
-    expected = c.num_layers * (1 + c.n_corrector) * c.timesteps * len(caps)
+    expected = model.planned_launches() * len(caps)
     fused_edge_chain.launches = 0
     torch.cuda.synchronize()
     s0 = time.perf_counter()
@@ -990,8 +1304,7 @@ def phase_rl(start_sd: dict) -> dict:
     root.addHandler(log)
     try:
         pipe = mat_invent.build(mat_invent.resolve("rl_hhi_rich5", 1), out)
-        c = pipe.agent.config
-        expected = c.num_layers * (1 + c.n_corrector) * c.timesteps
+        expected = pipe.agent.planned_launches()
         at_start = all(torch.equal(v.cpu(), start_sd[k]) for k, v in pipe.agent.state_dict().items())
         iters.append(dict(_iteration(pipe, log, pipe.run_rl), agent_is_start_checkpoint=at_start))
         saved = {k: v.cpu().clone() for k, v in pipe.agent.state_dict().items()}
@@ -1066,9 +1379,9 @@ def phase_rl_async() -> dict:
     root.addHandler(log)
     try:
         pipe = mat_invent.build(
-            mat_invent.resolve("rl_hhi_rich5", 2, ["pipeline.async_sampling=true"]), out)
-        c = pipe.agent.config
-        expected = c.num_layers * (1 + c.n_corrector) * c.timesteps
+            mat_invent.resolve("rl_hhi_rich5", 2, ["pipeline.async_sampling=true", *MG_STEPS_SETS]),
+            out)
+        expected = pipe.agent.planned_launches()
         launches_seen: list[tuple[int, str]] = []
         launch = pipe._launch_sampling
 
@@ -1218,6 +1531,31 @@ def phase_predictor() -> dict:
             b, yy = next(batches)
             losses.append(float(trainer.step(opt, b, yy)))
         step_ms = 1e3 * (time.perf_counter() - t1) / (TRAIN_STEPS - 1)
+
+        # the predictor-training CLI as a user runs it (on the card), its
+        # checkpoint reloaded on the card and on the CPU
+        work = Path(tmp)
+        save_extxyz(train, str(work / "tool_data.extxyz"))
+        np.savetxt(work / "tool_labels.txt", labels)
+        t1 = time.perf_counter()
+        tool = train_predictor_tool.main([
+            f"data={work / 'tool_data.extxyz'}", f"labels={work / 'tool_labels.txt'}",
+            f"model_name={TRAIN_MODEL}", f"output_dir={work / 'tool'}", f"steps={TOOL_STEPS}"])
+        tool_seconds = time.perf_counter() - t1
+        held = [train[i] for i in tool["val_index"]]
+        reloaded = {dev: PropertyGNN(TRAIN_MODEL, model_dir=work / "tool", device=dev)
+                    for dev in (DEV, "cpu")}
+        if not all(g.loaded for g in reloaded.values()):
+            raise AssertionError("the tool's checkpoint did not load")
+        tool_err = check_values(reloaded[DEV].predict(held), reloaded["cpu"].predict(held),
+                                PRED_TOL * reloaded["cpu"].y_std, 0.0, "train_predictor reload")
+        meta = dict(line.split("=", 1) for line in
+                    (work / "tool" / f"{TRAIN_MODEL}.meta.txt").read_text().splitlines())
+        if list(meta) != ["val_r2", "val_mae", "steps", "y_mean", "y_std", "labels"] \
+                or not all(map(math.isfinite, tool["losses"])) \
+                or not np.mean(tool["losses"][-5:]) < np.mean(tool["losses"][:5]) \
+                or not math.isfinite(tool["val_r2"]):
+            raise AssertionError(f"train_predictor: {meta}, losses {tool['losses']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if abs(first[DEV] - first["cpu"]) > 1e-4 * abs(first["cpu"]):
@@ -1232,6 +1570,11 @@ def phase_predictor() -> dict:
         trainer=dict(model=TRAIN_MODEL, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
                      first_loss=first[DEV], cpu_first_loss=first["cpu"], losses=losses,
                      ms_per_step=step_ms),
+        train_predictor=dict(steps=TOOL_STEPS, val_r2=tool["val_r2"], val_mae=tool["val_mae"],
+                             first_loss=tool["losses"][0], last_loss=tool["losses"][-1],
+                             ms_per_step=1e3 * tool["train_seconds"] / TOOL_STEPS,
+                             seconds=tool_seconds, reload_card_vs_cpu=tool_err,
+                             reload_tol=PRED_TOL),
         seconds=time.perf_counter() - t0,
     )
     emit(rec)
@@ -1240,7 +1583,8 @@ def phase_predictor() -> dict:
 
 def phase_rl_mag() -> dict:
     """Two rl_mag_rich_dense iterations as the entry point builds them, on
-    the card, in a temporary directory: 12,000 edge kernels each, a finite
+    the card, in a temporary directory, on the ``MG_STEPS`` grid: the
+    plan's edge kernels each, a finite
     magnetic-density mean scored on the card, ``time_score_s`` per
     iteration, and the archived JAX run's ``metrics.csv`` columns."""
     t0 = time.perf_counter()
@@ -1250,12 +1594,11 @@ def phase_rl_mag() -> dict:
     root.setLevel(logging.INFO)
     root.addHandler(log)
     try:
-        pipe = mat_invent.build(mat_invent.resolve("rl_mag_rich_dense", 2), out)
+        pipe = mat_invent.build(mat_invent.resolve("rl_mag_rich_dense", 2, MG_STEPS_SETS), out)
         calc = pipe.reward.prop_cfg[0]["calculator"]
         if not isinstance(calc, PropertyPredictor) or calc.device.type != torch.device(DEV).type:
             raise AssertionError(f"the reward's calculator is {calc!r}, not a predictor on the card")
-        c = pipe.agent.config
-        expected = c.num_layers * (1 + c.n_corrector) * c.timesteps
+        expected = pipe.agent.planned_launches()
         iters = []
         for step in range(pipe.rl_epoch):
             pipe.step = step
@@ -1300,20 +1643,11 @@ def _run_logged(fn):
         root.setLevel(level)
 
 
-def phase_diffcsp() -> dict:
-    """``experiments/results/pretrained`` through ``DiffCSPSuite``: the f32
-    score net on the card against the CPU on the same inputs; 128 crystals
-    at T=1000 (their seconds, validity shares and peak memory); one
-    iteration of the ``diffcsp_hhi`` recipe as the entry point builds it.
-    No edge kernel runs."""
-    t0 = time.perf_counter()
-    t1 = time.perf_counter()
-    suite = DiffCSPSuite(model_path=str(DIFFCSP_CKPT),
-                         config_overrides={"sample_clip": DIFFCSP_CLIP}, device=DEV)
-    model = suite.load_model()
-    load_seconds = time.perf_counter() - t1
-    cpu_model = DiffCSPSuite(model_path=str(DIFFCSP_CKPT), device="cpu").load_model()
-    c = model.config
+def _diffcsp_net_gap(card, cpu, what: str) -> float:
+    """The largest gap over the output's max(1, scale) of a DiffCSP score
+    net on the card against the same net on the CPU, on 64 random inputs;
+    raises beyond ``NET_TOL``."""
+    c = cpu.config
     rng = np.random.default_rng(0)
     B, A, K = 64, DIFFCSP_MAX_ATOMS, c.max_atomic_num
     na = torch.from_numpy(rng.integers(1, A + 1, B).astype(np.int64))
@@ -1326,18 +1660,61 @@ def phase_diffcsp() -> dict:
         torch.from_numpy((np.eye(3) * 5.0 + rng.normal(size=(B, 3, 3))).astype(np.float32)),
     )
     with torch.no_grad():
-        ref = cpu_model.apply_net(inputs, na, mask)
-        got = model.apply_net(NoisedInput(*(x.to(DEV) for x in inputs)), na.to(DEV), mask.to(DEV))
-    net_err = 0.0
+        ref = cpu.apply_net(inputs, na, mask)
+        got = card.apply_net(NoisedInput(*(x.to(DEV) for x in inputs)), na.to(DEV), mask.to(DEV))
+    gap = 0.0
     for name, g, r in zip(("lattice", "coords", "types"), got, ref):
         err = (g.cpu() - r).abs()
         if r.dim() == 3 and r.shape[1] == A:
             err = err * mask[..., None]
         rel = err.max().item() / max(1.0, r.abs().max().item())
         if not rel <= NET_TOL:
-            raise AssertionError(f"DiffCSP score net {name}: card vs cpu {rel} > {NET_TOL}")
-        net_err = max(net_err, rel)
+            raise AssertionError(f"DiffCSP score net ({what}) {name}: card vs cpu {rel} > {NET_TOL}")
+        gap = max(gap, rel)
+    return gap
+
+
+def phase_diffcsp() -> dict:
+    """``experiments/results/pretrained`` through ``DiffCSPSuite``: the f32
+    score net on the card against the CPU on the same inputs, and so the
+    net with ``ip=False``, ``use_dis_emb=False`` and both on random weights
+    at the checkpoint's width (h128/L4); 128 crystals
+    at T=1000 (their seconds, validity shares and peak memory); one
+    iteration of the ``diffcsp_hhi`` recipe as the entry point builds it.
+    No edge kernel runs."""
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    suite = DiffCSPSuite(model_path=str(DIFFCSP_CKPT),
+                         config_overrides={"sample_clip": DIFFCSP_CLIP}, device=DEV)
+    model = suite.load_model()
+    load_seconds = time.perf_counter() - t1
+    cpu_model = DiffCSPSuite(model_path=str(DIFFCSP_CKPT), device="cpu").load_model()
+    c = model.config
+    A = DIFFCSP_MAX_ATOMS
+    net_err = _diffcsp_net_gap(model, cpu_model, "the checkpoint")
     del cpu_model
+    # the options no in-repo checkpoint sets, on random weights at the
+    # checkpoint's width: ip=False (the raw lattice; a DiffCSP config
+    # field), CSPNet's use_dis_emb=False (the raw coordinate differences; no
+    # DiffCSP config sets it, as in the JAX package, so the net is built
+    # directly), and both
+    def with_options(ip, dis, device):
+        m = DiffCSPDiffusion(dataclasses.replace(c, ip=ip), device=device)
+        if not dis:
+            m.decoder = CSPNet(hidden_dim=c.hidden_dim, latent_dim=c.time_dim,
+                               num_layers=c.num_layers, max_atoms=c.max_atomic_num,
+                               num_freqs=c.num_freqs, ln=c.ln, smooth=True, pred_type=True,
+                               ip=ip, use_dis_emb=False).to(device)
+        return m
+
+    options = {}
+    for ip, dis in ((False, True), (True, False), (False, False)):
+        torch.manual_seed(1)
+        cpu_opt = with_options(ip, dis, "cpu")
+        card_opt = with_options(ip, dis, DEV)
+        card_opt.load_state_dict(cpu_opt.state_dict())
+        options[f"ip={ip},use_dis_emb={dis}"] = _diffcsp_net_gap(
+            card_opt, cpu_opt, f"ip={ip}, use_dis_emb={dis}")
 
     sampler = DiffCSPSampler(batch_size=DIFFCSP_BATCH, num_batches=1, max_atoms=A, seed=SEED)
     fused_edge_chain.launches = 0
@@ -1380,6 +1757,7 @@ def phase_diffcsp() -> dict:
     it = _run_logged(one_iteration)
     rec = dict(phase="diffcsp", checkpoint=str(DIFFCSP_CKPT.relative_to(ROOT)),
                load_seconds=load_seconds, net_max_rel_err=net_err, net_tol=NET_TOL,
+               options_net_max_rel_err=options,
                batch=DIFFCSP_BATCH, max_atoms=A, timesteps=c.timesteps,
                sample_clip=DIFFCSP_CLIP, sample_seconds=sample_seconds,
                structures_per_s=DIFFCSP_BATCH / sample_seconds, validity=shares,
@@ -1389,7 +1767,7 @@ def phase_diffcsp() -> dict:
     return rec
 
 
-def phase_ddpo(name: str, recipe: str) -> dict:
+def phase_ddpo(name: str, recipe: str, sets=()) -> dict:
     """Two iterations of a DDPO recipe as the entry point builds them, in a
     temporary directory. In iteration 0, before its update, the whole
     recorded trajectory is replayed at the recording weights: the mean
@@ -1401,7 +1779,7 @@ def phase_ddpo(name: str, recipe: str) -> dict:
     def run(log):
         out = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
         try:
-            pipe = mat_invent.build(mat_invent.resolve(recipe, 2), out)
+            pipe = mat_invent.build(mat_invent.resolve(recipe, 2, list(sets)), out)
             if pipe.ddpo is None or not pipe.sampler.record_trajectories:
                 raise AssertionError(f"{recipe} did not build a DDPO run")
             replays = []
@@ -1585,8 +1963,8 @@ def phase_relax_phonon() -> dict:
 def phase_rl_heat() -> dict:
     """Two ``rl_heat_capacity_t1000`` iterations as the entry point builds
     them, on the card, in a temporary directory: 128 crystals of
-    ``pretrained_mattergen_t1000`` sampled through the edge kernel (8,000
-    launches each), the invalid filter, the MLIP bridge's heat-capacity
+    ``pretrained_mattergen_t1000`` on its ``MG_STEPS`` grid through the
+    edge kernel (the plan's launches), the invalid filter, the MLIP bridge's heat-capacity
     worker on the card (its stderr names the native backend), memory,
     replay and the reward-weighted fine-tune; a finite reward mean."""
     t0 = time.perf_counter()
@@ -1594,21 +1972,22 @@ def phase_rl_heat() -> dict:
     def run(log):
         out = tempfile.mkdtemp(prefix="chip_smoke_rl_heat_")
         try:
-            pipe = mat_invent.build(mat_invent.resolve("rl_heat_capacity_t1000", 2), out)
+            pipe = mat_invent.build(mat_invent.resolve("rl_heat_capacity_t1000", 2, MG_STEPS_SETS),
+                                    out)
             calc = pipe.reward.prop_cfg[0]["calculator"]
             if not isinstance(calc, MLIPBridge) or calc.device.type != torch.device(DEV).type:
                 raise AssertionError(f"the reward's calculator is {calc!r}, not the bridge on the card")
             c = pipe.agent.config
-            expected = c.num_layers * (1 + c.n_corrector) * c.timesteps
             # the kernel at each iteration's bucket shapes, drawn from a copy
             # of the sampler as its launches will draw them
             plan_sampler = copy.deepcopy(pipe.sampler)
             total = pipe.sample_cfg["batch_size"] * pipe.sample_cfg["num_batches"]
-            plans = []
+            plans, expected = [], []
             for _ in range(pipe.rl_epoch):
                 na = plan_sampler._draw_num_atoms(total)
                 cuts, caps = plan_sampler.bucket_plan(na)
                 plans += [(na[idx], cap) for idx, cap in zip(cuts, caps)]
+                expected.append(pipe.agent.planned_launches() * len(caps))
             kernel = check_path_kernel(plans, c.hidden_dim, c.num_freqs)
             iters = []
             for step in range(pipe.rl_epoch):
@@ -1619,10 +1998,10 @@ def phase_rl_heat() -> dict:
                 # _iteration clears the log first: this iteration's lines
                 it["worker_log"] = [m for m in log.messages if m.startswith("[mlip/")]
                 iters.append(it)
-            for it in iters:
-                if it["kernel_launches"] != expected:
+            for it, want in zip(iters, expected):
+                if it["kernel_launches"] != want or want == 0:
                     raise AssertionError(f"iteration {it['step']}: {it['kernel_launches']} "
-                                         f"launches, not {expected}")
+                                         f"launches, not {want}")
                 if not math.isfinite(float(it["reward_mean"])):
                     raise AssertionError(f"iteration {it['step']}: reward mean {it['reward_mean']}")
                 if not any("backend: native" in m for m in it["worker_log"]):
@@ -1658,7 +2037,7 @@ def phase_csp() -> dict:
     torch.cuda.synchronize()
     sample_seconds = time.perf_counter() - t1
     launches = fused_edge_chain.launches
-    if launches != c.num_layers * (1 + c.n_corrector) * c.timesteps:
+    if launches != model.planned_launches():
         raise AssertionError(f"CSP sampling launched the edge kernel {launches} times")
     if not (np.array_equal(batch.atom_types.cpu().numpy(), types)
             and np.array_equal(batch.num_atoms.cpu().numpy(), na)):
@@ -1678,10 +2057,10 @@ def phase_csp() -> dict:
 def phase_knn() -> dict:
     """``pretrained_mattergen_t1000`` with ``edge_style: knn``: its f32
     score net on the card against the CPU within 2e-4 of scale, then 64
-    crystals at T=1000, which sample on the plain net (the edge kernel
+    crystals on the ``MG_STEPS`` grid, which sample on the plain net (the edge kernel
     takes fc edges only): no kernel launch."""
     t0 = time.perf_counter()
-    over = {"edge_style": "knn", "sample_clip": 30.0}
+    over = {"edge_style": "knn", "sample_clip": 30.0, "timesteps": MG_STEPS}
     model = load_model(MG_T1000, device=DEV, config_overrides=over)
     cpu_model = load_model(MG_T1000, device="cpu", config_overrides=over)
     c = model.config
@@ -1760,11 +2139,6 @@ class SampleCalls:
         MatterGenDiffusion.sample, MatterGenDiffusion.sample_bucketed = self._orig
 
 
-def _per_bucket(model) -> int:
-    c = model.config
-    return c.num_layers * (1 + c.n_corrector) * c.timesteps
-
-
 def _drive(fn, cwd_back: str):
     """``fn()`` (an entry point) with the launch count set to 0 just before
     and read just after, the pipeline's log captured and the working
@@ -1787,7 +2161,7 @@ def _drive(fn, cwd_back: str):
 
 
 def _check_launches(name: str, launches: int, plans: list, model) -> int:
-    expected = len(plans) * _per_bucket(model)
+    expected = model.planned_launches() * len(plans)
     if launches != expected or launches == 0:
         raise AssertionError(f"{name}: {launches} edge-kernel launches, the bucket plan "
                              f"({len(plans)} buckets) gives {expected}")
@@ -1874,11 +2248,11 @@ def phase_baseline() -> dict:
 
 def phase_gen_eval() -> dict:
     """``python -m matinvent_tpu_torch.gen_eval`` with the 1024 record's
-    arguments at 2 x 64 crystals: the start checkpoint, ``corpus_r5`` as the
-    reference, its hull and its atom-count histogram, relaxation on the
-    card, both matcher tiers. ``metrics.json`` has the record's keys and
-    fractions in [0, 1]; the launches (a warm launch and two timed ones)
-    follow the plan; structures per second."""
+    arguments at ``GEN_EVAL_BATCHES`` x 64 crystals: the start checkpoint,
+    ``corpus_r5`` as the reference, its hull and its atom-count histogram,
+    relaxation on the card, both matcher tiers. ``metrics.json`` has the
+    record's keys and fractions in [0, 1]; the launches (a warm launch and
+    the timed ones) follow the plan; structures per second."""
     t0 = time.perf_counter()
     out = tempfile.mkdtemp(prefix="chip_smoke_gen_eval_")
     try:
@@ -2399,9 +2773,10 @@ def phase_dp() -> dict:
     from ``MATINVENT_COORDINATOR`` / ``_NUM_PROCESSES`` / ``_PROCESS_ID``.
     (b) Two ranks on the one card over ``gloo`` (NCCL refuses two ranks on
     one device), ``experiments/dp_check.py``: a recorded DiffCSP sample (the
-    DiffCSP checkpoint) and MatterGen samples (``pretrained_mattergen_t1000``,
-    one through the edge kernel, one recorded) of ``DP_BATCH`` crystals at
-    T=1000, each rank sampling its rows, gathered and held against the same
+    DiffCSP checkpoint, T=1000) and MatterGen samples
+    (``pretrained_mattergen_t1000`` on its ``MG_STEPS`` grid, one through
+    the edge kernel, one recorded) of ``DP_BATCH`` crystals, each rank
+    sampling its rows, gathered and held against the same
     run in this process. The ranks' blocks sampled in turn in this process
     (the same shapes) hold them within ``DP_SAME_TOL`` of scale and with
     no type flip. Against the whole batch at once in this process: every
@@ -2410,7 +2785,7 @@ def phase_dp() -> dict:
     ``DP_PREFIX_TOL`` of scale (DiffCSP's lattice and type logits times
     their gain over those steps, ``_diffcsp_gain``) with no type flip; the
     final samples are reported beside, with their type flips named: the
-    card's GEMMs round a row differently at twice the rows, and the T=1000
+    card's GEMMs round a row differently at twice the rows, and the long
     chain amplifies that. The per-evaluation gap is held
     too (``_dp_net_parity``: each score net on a rank's rows against the
     whole batch, within ``NET_TOL`` of scale). Each rank's edge-kernel
@@ -2441,7 +2816,8 @@ def phase_dp() -> dict:
         rng = np.random.default_rng(DP_SEED)
         mg_na = [int(v) for v in rng.integers(1, DP_MAX_ATOMS + 1, DP_BATCH)]
         rewards = rng.random(DP_BATCH).tolist()
-        mg = {"family": "mattergen", "path": str(MG_T1000)}
+        mg = {"family": "mattergen", "path": str(MG_T1000),
+              "overrides": {"timesteps": MG_STEPS}}
         ddpo = dict(kind="ddpo", name="ddpo", model=mg, max_atoms=DP_MAX_ATOMS, rewards=rewards,
                     lr=DP_LR, chunk=DP_CHUNK, epochs=1, max_grad_norm=1.0)
         tasks = [
@@ -2704,8 +3080,8 @@ def phase_distill() -> dict:
         MatterGenDiffusion.sample, distill_tool.TeacherScoredDiffusion.sample = sample, teacher_sample
         distill_tool.distill, distill_tool.heldout_match = distill, heldout
         shutil.rmtree(out, ignore_errors=True)
-    plan = a["layers"] * 2 * a["timesteps"]
-    if (parts["student_sample"]["launches"] != plan or launches != plan
+    plan = loaded.planned_launches()
+    if (plan == 0 or parts["student_sample"]["launches"] != plan or launches != plan
             or parts["train"]["launches"] or parts["teacher_sample"]["launches"]
             or parts["heldout"]["launches"]):
         raise AssertionError(f"distill: {launches} launches in all, by part {parts}; plan {plan}")
@@ -2730,8 +3106,9 @@ def phase_distill() -> dict:
 
 def phase_reward_ceiling() -> dict:
     """The reward-ceiling tool's scoring on the card: ``magnetic_density``
-    and ``gap_bulk`` over the first ``CEILING_N`` designs, card against CPU
-    within ``CEILING_TOL`` per design, every scored reward finite and the
+    and ``gap_bulk`` over the first ``CEILING_N`` designs, the first
+    ``CEILING_CPU`` card against CPU within ``CEILING_TOL`` per design
+    (failures equal), every scored reward finite and the
     summary's statistics finite; heat capacity on ``CEILING_HEAT`` designs
     of its pick through the bridge's worker on the card (its log names the
     native backend): no NaN, each design held against JAX's record
@@ -2750,16 +3127,16 @@ def phase_reward_ceiling() -> dict:
         os.chdir(work)
         for name in CEILING_REWARDS:
             scored = {}
-            for dev in (DEV, "cpu"):
+            for dev, rows in ((DEV, head), ("cpu", head[:CEILING_CPU])):
                 reward, threshold = ceiling_tool.build_reward(name, dev)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                scored[dev] = ceiling_tool.score_all(reward, head, f"ceiling_{name}_{dev}")
+                scored[dev] = ceiling_tool.score_all(reward, rows, f"ceiling_{name}_{dev}")
                 torch.cuda.synchronize()
                 scored[f"{dev}_seconds"] = time.perf_counter() - t
             (r, props, failed), (r_cpu, _, failed_cpu) = scored[DEV], scored["cpu"]
-            err = float(np.abs(np.asarray(r, float) - np.asarray(r_cpu, float)).max())
-            if err > CEILING_TOL or not np.array_equal(failed, failed_cpu):
+            err = float(np.abs(np.asarray(r, float)[:CEILING_CPU] - np.asarray(r_cpu, float)).max())
+            if err > CEILING_TOL or not np.array_equal(np.asarray(failed)[:CEILING_CPU], failed_cpu):
                 raise AssertionError(f"reward_ceiling {name}: card vs CPU {err}")
             summary = ceiling_tool.summarize(name, threshold, r, props, failed, valid, head_meta)
             ok = ~np.asarray(failed)
@@ -2796,6 +3173,7 @@ def phase_reward_ceiling() -> dict:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
     rec = dict(phase="reward_ceiling", designs=len(structures), scored=CEILING_N,
+               cpu_scored=CEILING_CPU,
                rewards=rewards, seconds=time.perf_counter() - t0)
     emit(rec)
     return rec
@@ -2828,6 +3206,7 @@ def main() -> int:
     phase_score_net(model, torch.bfloat16)
     samp_bf16 = phase_sampling(model)
     del model
+    edge = phase_edge_shapes()
     phase_finetune()
     model = load_model(START, device=DEV)
     start_sd = {k: v.cpu().clone() for k, v in model.state_dict().items()}
@@ -2840,12 +3219,12 @@ def main() -> int:
     rl_mag = phase_rl_mag()
     csp = phase_diffcsp()
     ddpo = [phase_ddpo("ddpo_diffcsp", "rl_hhi_ddpo"),
-            phase_ddpo("ddpo_mattergen", "rl_hhi_ddpo_mattergen_t1000")]
+            phase_ddpo("ddpo_mattergen", "rl_hhi_ddpo_mattergen_t1000", MG_STEPS_SETS)]
     phase_relax_phonon()
     rl_heat = phase_rl_heat()
     csp_mode = phase_csp()
     knn = phase_knn()
-    ddpo.append(phase_ddpo("ddpo_cond", "rl_cond_ddpo"))
+    ddpo.append(phase_ddpo("ddpo_cond", "rl_cond_ddpo", MG_STEPS_SETS))
     entry = {"main": phase_main(), "baseline": phase_baseline(), "gen_eval": phase_gen_eval()}
     pre = phase_pretrain()
     phase_syn_score_train()
@@ -2856,6 +3235,7 @@ def main() -> int:
     phase_reward_ceiling()
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     b = kern["buckets"]
+    wide = edge["runs"]["h384"]["wide_buckets_timing"]
     common = dict(route="cuda", impl="cuda", checked=True)
     emit({"kernels": [dict(common,
         name="fused_edge_chain",
@@ -2869,6 +3249,16 @@ def main() -> int:
         launches_rl_mag=[it["kernel_launches"] for it in rl_mag["iterations"]],
         launches_rl_heat=[it["kernel_launches"] for it in rl_heat["iterations"]],
         launches_csp=csp_mode["kernel_launches"],
+        # h384 (every bucket on the wide route) and max_atoms 72 (the cap-72
+        # bucket on the wide route): each its plan
+        **{f"launches_edge_shapes_{k}": v["kernel_launches"] for k, v in edge["runs"].items()},
+        # the wide route at the h384 run's two buckets, one layer-eval:
+        # device time, launched from Python, plain version, chain of
+        # PyTorch ops, bound; errors of both edge_shapes runs' buckets
+        **{f"wide_{k}": v for k, v in wide.items()},
+        wide_max_abs_err=max(v["kernel_vs_plain"]["max_abs_err_f32"] for v in edge["runs"].values()),
+        wide_max_abs_err_bf16=max(v["kernel_vs_plain"]["max_abs_err_bf16"]
+                                  for v in edge["runs"].values()),
         # DiffCSP, DDPO and knn edges run the plain net: checked to be 0
         launches_diffcsp_ddpo=[csp["iteration"]["kernel_launches"]] + [
             it["kernel_launches"] for rec in ddpo for it in rec["iterations"]],

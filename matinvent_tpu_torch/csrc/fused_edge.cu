@@ -55,6 +55,30 @@
 // 17 KB, e 64x260 f32 65 KB, ring 4 x 16x264 f32 66 KB) plus 3.3 KB static.
 // The padded rows of a crystal (u_i = 0) come out as exactly 0.
 //
+// The tiled instances above take H in {32, 64, 128, 256}, A <= 64 and at
+// most 64 lanes. Every other shape (h384, a bucket capped above 64 atoms,
+// more than 10 frequencies, an odd width) runs fused_edge_wide_kernel, the
+// same function on the same 64-row tiles, in the way the Pallas kernel
+// pads its blocks:
+//  * the width is padded to Hp, a multiple of kHc = 128 columns (the padded
+//    weight columns and rows read as 0, so the padded e columns are 0 and
+//    add nothing), and both products run pass by pass over 128 output
+//    columns; e stays whole in shared memory (f32, [64][Hp]) because every
+//    pass of the second product reads all of its Hp columns;
+//  * the weights stream from L2 through a two-stage ring of 16-row tiles,
+//    staged in registers so a tile's loads overlap the previous tile's
+//    products, as f32; both dtypes run mma.m16n8k8 in TF32: f32 as 3xTF32,
+//    bf16 as one product per fragment (a bf16 value is exact in TF32);
+//  * a crystal row i of A > 64 atoms has its A edge rows in consecutive
+//    64-row chunks of one block, and its j-sum runs on across the chunks
+//    (runs[], one f32 per column in shared memory), in the same order on
+//    every run;
+//  * the embedding is any number of lanes, rounded up to 16.
+// Its dynamic shared memory, 4 * (max(64 (Kd + 4), 32 * 136) + 64 (Hp + 4)
+// + 2 * 16 * 136 + Hp + 3 lanes) bytes (wide_smem_bytes; ops/fused_edge.py's
+// rule computes the same), bounds the width: 640 at 60 lanes. Up to
+// width 256 two blocks fit on an SM.
+//
 // The launch function has a plain C interface (raw pointers, the stream),
 // returns cudaGetLastError(), and is bound from Python with ctypes
 // (matinvent_tpu_torch/ops/fused_edge.py).
@@ -371,6 +395,348 @@ cudaError_t launch_typed(const EdgeArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- wide route
+
+constexpr int kHc = 128;             // output columns of one pass
+constexpr int kLdB = kHc + 8;        // row stride of a staged weight tile
+constexpr int kLdS = kHc + 8;        // row stride of the j-sum staging rows
+constexpr int kStageW = kKt * kLdB;  // floats of one weight tile
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Float offsets of the wide kernel's dynamic shared memory. The j-sum's
+// staging rows lie over the embedding tile, which no pass of the second
+// product reads.
+struct WideSmem {
+  int Kd, Hp, ldEmb, ldE, emb, sums, e, ring, runs, fms, floats;
+  __host__ __device__ WideSmem(int H, int lanes)
+      : Kd(round_up(lanes, kKt)),
+        Hp(round_up(H, kHc)),
+        ldEmb(Kd + 4),
+        ldE(Hp + 4),
+        emb(0),
+        sums(0),
+        e(kRows * ldEmb > kSumRows * kLdS ? kRows * ldEmb : kSumRows * kLdS),
+        ring(e + kRows * ldE),
+        runs(ring + 2 * kStageW),
+        fms(runs + Hp),
+        floats(fms + 3 * lanes) {}
+};
+
+size_t wide_smem_bytes(int H, int lanes) {
+  return size_t(WideSmem(H, lanes).floats) * 4;
+}
+
+// acc = sA[:, :K] @ W[:K, n0 : n0 + kHc] for the 64-row tile sA (f32 in
+// shared memory, row stride lda), W row-major [kvalid, ncols] of T in
+// device memory (row stride ncols; rows past kvalid and columns past ncols
+// read as 0), K a multiple of kKt. The weight tiles pass through the
+// two-stage ring, each loaded into registers while the previous one is
+// multiplied. f32 runs 3xTF32; bf16 operands are exact in TF32, so one
+// product per fragment. Ends on a barrier.
+template <typename T>
+__device__ __forceinline__ void gemm_wide(const float* sA, int lda,
+                                          const T* __restrict__ W, int n0,
+                                          int K, int kvalid, int ncols,
+                                          float* ring, Acc<kHc>& acc,
+                                          int warp, int lane, int tid) {
+  using G = Geo<kHc>;
+  constexpr bool kSplit = sizeof(T) == 4;
+  constexpr int kPer = kKt * kHc / kThreads;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int arow = (warp / G::WARPS_N) * G::MI * 16 + g;
+  const int bcol = (warp % G::WARPS_N) * G::NI * 8 + g;
+  float v[kPer];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const int idx = tid + p * kThreads;
+      const int k = k0 + idx / kHc;
+      const int col = n0 + idx % kHc;
+      v[p] = k < kvalid && col < ncols
+                 ? to_float(__ldg(W + static_cast<size_t>(k) * ncols + col))
+                 : 0.0f;
+    }
+  };
+  auto put = [&](float* dst) {
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const int idx = tid + p * kThreads;
+      dst[(idx / kHc) * kLdB + idx % kHc] = v[p];
+    }
+  };
+  zero_acc<kHc>(acc);
+  const int ntiles = K / kKt;
+  fetch(0);
+  put(ring);
+  __syncthreads();
+  for (int kt = 0; kt < ntiles; ++kt) {
+    if (kt + 1 < ntiles) fetch((kt + 1) * kKt);
+    const float* sB = ring + (kt & 1) * kStageW;
+#pragma unroll
+    for (int kk = 0; kk < kKt; kk += 8) {
+      const int ka = kt * kKt + kk;
+      unsigned ahi[G::MI][4], alo[G::MI][4];
+#pragma unroll
+      for (int mi = 0; mi < G::MI; ++mi) {
+        const float* p = sA + (arow + mi * 16) * lda + ka + t;
+        const float x[4] = {p[0], p[8 * lda], p[4], p[8 * lda + 4]};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if constexpr (kSplit) {
+            split_tf32(x[c], ahi[mi][c], alo[mi][c]);
+          } else {
+            ahi[mi][c] = to_tf32(x[c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int ni = 0; ni < G::NI; ++ni) {
+        const float* q = sB + (kk + t) * kLdB + bcol + ni * 8;
+        unsigned bhi0, blo0, bhi1, blo1;
+        if constexpr (kSplit) {
+          split_tf32(q[0], bhi0, blo0);
+          split_tf32(q[4 * kLdB], bhi1, blo1);
+        } else {
+          bhi0 = to_tf32(q[0]);
+          bhi1 = to_tf32(q[4 * kLdB]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < G::MI; ++mi) {
+          if constexpr (kSplit) {
+            mma_tf32(acc[mi][ni], alo[mi], bhi0, bhi1);
+            mma_tf32(acc[mi][ni], ahi[mi], blo0, blo1);
+          }
+          mma_tf32(acc[mi][ni], ahi[mi], bhi0, bhi1);
+        }
+      }
+    }
+    if (kt + 1 < ntiles) put(ring + ((kt + 1) & 1) * kStageW);
+    __syncthreads();
+  }
+}
+
+// The sampler's function (mode kFull) at any shape; see the header. Work
+// item k is rows_i whole rows (b, i) from row k * rows_i (rows_i =
+// floor(64 / A), or 1 when A > 64); its n_i * A edge rows g = il * A + j
+// run in 64-row chunks.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_edge_wide_kernel(const T* __restrict__ ti, const T* __restrict__ tj,
+                           const float* __restrict__ fr,
+                           const float* __restrict__ fmat,
+                           const float* __restrict__ ui,
+                           const float* __restrict__ uj,
+                           const T* __restrict__ wd, const T* __restrict__ w1,
+                           const T* __restrict__ b1, T* __restrict__ out,
+                           int B, int A, int H, int lanes, int n_sin,
+                           int rows_i, int n_items) {
+  using G = Geo<kHc>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ float fd_s[kRows][3];
+  __shared__ int ti_row[kRows];  // row (b, i) of term_i, -1 if dead
+  __shared__ int tj_row[kRows];  // row (b, j) of term_j
+  __shared__ float w_row[kRows];  // u_j of the row
+  const WideSmem L(H, lanes);
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  float* emb = sm + L.emb;
+  float* e = sm + L.e;
+  float* ring = sm + L.ring;
+  float* sums = sm + L.sums;
+  float* runs = sm + L.runs;  // row i's j-sum so far, per column
+  float* fms = sm + L.fms;    // fmat [3][lanes]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int n_q = B * A;
+  const int rbase = (warp / G::WARPS_N) * G::MI * 16 + lane / 4;
+  const int cbase = (warp % G::WARPS_N) * G::NI * 8 + 2 * (lane % 4);
+  for (int c = tid; c < L.Hp; c += kThreads) runs[c] = 0.0f;
+  for (int idx = tid; idx < 3 * lanes; idx += kThreads) fms[idx] = fmat[idx];
+
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int q0 = item * rows_i;
+    const int n_g = min(rows_i, n_q - q0) * A;
+    for (int g0 = 0; g0 < n_g; g0 += kRows) {
+      const int rows = min(kRows, n_g - g0);
+      // the previous chunk's readers of the tables, e and sums are done
+      __syncthreads();
+      if (tid < kRows) {
+        const int r = tid;
+        int qi = -1, qj = 0;
+        float w = 0.0f;
+        if (r < rows) {
+          const int il = (g0 + r) / A;
+          qi = q0 + il;
+          qj = (qi / A) * A + (g0 + r - il * A);
+          w = uj[qj];
+#pragma unroll
+          for (int s = 0; s < 3; ++s) {
+            const float d = fr[qj * 3 + s] - fr[qi * 3 + s];
+            fd_s[r][s] = d - floorf(d);
+          }
+        }
+        ti_row[r] = qi;
+        tj_row[r] = qj;
+        w_row[r] = w;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < kRows * L.Kd; idx += kThreads) {
+        const int r = idx / L.Kd;
+        const int l = idx - r * L.Kd;
+        float x = 0.0f;
+        if (ti_row[r] >= 0 && l < lanes) {
+          const float ph = __fadd_rn(
+              __fadd_rn(__fmul_rn(fd_s[r][0], fms[l]),
+                        __fmul_rn(fd_s[r][1], fms[lanes + l])),
+              __fmul_rn(fd_s[r][2], fms[2 * lanes + l]));
+          x = round_to<T>(sin_or_cos(ph, l < n_sin));
+        }
+        emb[r * L.ldEmb + l] = x;
+      }
+      __syncthreads();
+
+      // e = silu(emb @ w_d + term_i + term_j), rounded to T, pass by pass;
+      // 0 on dead rows and padded columns
+      for (int n0 = 0; n0 < L.Hp; n0 += kHc) {
+        Acc<kHc> acc;
+        gemm_wide<T>(emb, L.ldEmb, wd, n0, L.Kd, lanes, H, ring, acc, warp,
+                     lane, tid);
+#pragma unroll
+        for (int mi = 0; mi < G::MI; ++mi) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = rbase + mi * 16 + h * 8;
+            const int qi = ti_row[r];
+            const size_t oi = static_cast<size_t>(max(qi, 0)) * H;
+            const size_t oj = static_cast<size_t>(tj_row[r]) * H;
+#pragma unroll
+            for (int ni = 0; ni < G::NI; ++ni) {
+              const int col = n0 + cbase + ni * 8;
+              const float* v = acc[mi][ni] + 2 * h;
+              float x[2] = {0.0f, 0.0f};
+#pragma unroll
+              for (int k = 0; k < 2; ++k) {
+                if (qi >= 0 && col + k < H) {
+                  x[k] = round_to<T>(silu(v[k] + to_float(__ldg(ti + oi + col + k)) +
+                                          to_float(__ldg(tj + oj + col + k))));
+                }
+              }
+              store2(e + r * L.ldE + col, x[0], x[1]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+
+      // s = silu(e @ w_1 + b_1) * u_j, pass by pass, then the pass's j-sum:
+      // kSumRows rows at a time staged in f32 (over emb, which the first
+      // product's last barrier freed), thread c sums column n0 + c
+      // down the rows and writes out_i = u_i * sum_j when row i's run of A
+      // rows ends (runs[] carries it across chunks)
+      for (int n0 = 0; n0 < L.Hp; n0 += kHc) {
+        Acc<kHc> acc;
+        gemm_wide<T>(e, L.ldE, w1, n0, L.Hp, H, H, ring, acc, warp, lane,
+                     tid);
+#pragma unroll
+        for (int mi = 0; mi < G::MI; ++mi) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float w = w_row[rbase + mi * 16 + h * 8];
+#pragma unroll
+            for (int ni = 0; ni < G::NI; ++ni) {
+              const int col = n0 + cbase + ni * 8;
+              float* v = acc[mi][ni] + 2 * h;
+#pragma unroll
+              for (int k = 0; k < 2; ++k) {
+                const float b = col + k < H ? to_float(__ldg(b1 + col + k)) : 0.0f;
+                v[k] = silu(v[k] + b) * w;
+              }
+            }
+          }
+        }
+        for (int r0 = 0; r0 < rows; r0 += kSumRows) {
+          __syncthreads();
+          for_each_acc<kHc>(acc, warp, lane,
+                            [&](int r, int c, float v0, float v1) {
+                              if (r >= r0 && r < r0 + kSumRows) {
+                                store2(sums + (r - r0) * kLdS + c, v0, v1);
+                              }
+                            });
+          __syncthreads();
+          if (tid < kHc) {
+            const int col = n0 + tid;
+            const int r1 = min(r0 + kSumRows, rows);
+            float run = runs[col];
+            int r = r0;
+            while (r < r1) {
+              // the rows of row i's run that lie in this stage, two sums
+              // apart
+              const int il = (g0 + r) / A;
+              const int end = (il + 1) * A - g0;
+              const int stop = min(r1, end);
+              float s0 = 0.0f, s1 = 0.0f;
+              for (; r + 1 < stop; r += 2) {
+                s0 += sums[(r - r0) * kLdS + tid];
+                s1 += sums[(r + 1 - r0) * kLdS + tid];
+              }
+              if (r < stop) s0 += sums[(r++ - r0) * kLdS + tid];
+              run += s0 + s1;
+              if (r == end) {
+                const size_t q = static_cast<size_t>(q0 + il);
+                if (col < H) out[q * H + col] = from_float<T>(run * ui[q]);
+                run = 0.0f;
+              }
+            }
+            runs[col] = run;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const EdgeArgs& a, int H, cudaStream_t stream) {
+  auto* kernel = fused_edge_wide_kernel<T>;
+  const size_t smem = wide_smem_bytes(H, a.lanes);
+  // the shared-memory opt-in (raised to the largest asked so far) and the
+  // resident slots at the last size
+  static size_t opted = 0, last = 0;
+  static int slots = 0;
+  if (smem > opted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    opted = smem;
+  }
+  if (smem != last) {
+    slots = resident_blocks(kernel, smem);
+    last = smem;
+  }
+  if (slots == 0) return cudaErrorInvalidConfiguration;
+  const int rows_i = a.A <= kRows ? kRows / a.A : 1;
+  const int n_items = (a.B * a.A + rows_i - 1) / rows_i;
+  const int grid = n_items < slots ? n_items : slots;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.ti), static_cast<const T*>(a.tj), a.fr, a.fmat,
+      a.ui, a.uj, static_cast<const T*>(a.wd), static_cast<const T*>(a.w1),
+      static_cast<const T*>(a.b1), static_cast<T*>(a.out), a.B, a.A, H,
+      a.lanes, a.n_sin, rows_i, n_items);
+  return cudaGetLastError();
+}
+
+// Whether the tiled instances take the shape (else the wide kernel runs).
+bool tiled(int A, int H, int lanes) {
+  return A <= kRows && lanes <= kMaxLanes &&
+         (H == 32 || H == 64 || H == 128 || H == 256);
+}
+
 template <typename T>
 cudaError_t launch_full(const EdgeArgs& a, int H, cudaStream_t stream) {
   switch (H) {
@@ -409,7 +775,9 @@ cudaError_t launch_ablation(int mode, const EdgeArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // mode: kFull (the sampler's kernel) .. kDemb, see Mode. dtype: 0 = float32,
-// 1 = bfloat16 (the ablations take bfloat16 and H = 256 only).
+// 1 = bfloat16 (the ablations take bfloat16, H = 256, A <= 64 and at most
+// 64 lanes only). kFull runs a tiled instance where one takes the shape,
+// else the wide kernel.
 // term_i/term_j/out [B, A, H], frac [B, A, 3] f32, fmat [3, lanes] f32,
 // de [B, A, A, lanes] (kDemb only; fr and fmat are not read then), ui/uj
 // [B, A] f32, wd [lanes, H], w1 [H, H] (in, out), b1 [H]; all contiguous
@@ -422,8 +790,9 @@ extern "C" int fused_edge_launch(int mode, const void* ti, const void* tj,
                                  const void* w1, const void* b1, void* out,
                                  int B, int A, int H, int lanes, int n_sin,
                                  int jsel, int dtype, void* stream) {
-  if (B <= 0 || A <= 0 || A > kRows || lanes <= 0 || lanes > kMaxLanes ||
-      n_sin < 0 || n_sin > lanes || jsel < 0 || jsel >= A) {
+  if (B <= 0 || A <= 0 || H <= 0 || lanes <= 0 || n_sin < 0 ||
+      n_sin > lanes || jsel < 0 || jsel >= A ||
+      (mode != kFull && !tiled(A, H, lanes))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const EdgeArgs a{ti,
@@ -445,9 +814,11 @@ extern "C" int fused_edge_launch(int mode, const void* ti, const void* tj,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (mode == kFull && dtype == 0) {
-    err = launch_full<float>(a, H, s);
+    err = tiled(A, H, lanes) ? launch_full<float>(a, H, s)
+                             : launch_wide<float>(a, H, s);
   } else if (mode == kFull && dtype == 1) {
-    err = launch_full<__nv_bfloat16>(a, H, s);
+    err = tiled(A, H, lanes) ? launch_full<__nv_bfloat16>(a, H, s)
+                             : launch_wide<__nv_bfloat16>(a, H, s);
   } else if (dtype == 1 && H == 256) {
     err = launch_ablation(mode, a, s);
   } else {
@@ -477,6 +848,12 @@ extern "C" int fused_edge_smem_bytes(int H, int dtype) {
       return -1;
   }
   return static_cast<int>(bytes);
+}
+
+// Dynamic shared memory (bytes) of one block of the wide kernel at width H
+// and `lanes` embedding lanes (either dtype).
+extern "C" int fused_edge_wide_smem_bytes(int H, int lanes) {
+  return static_cast<int>(wide_smem_bytes(H, lanes));
 }
 
 #ifdef FUSED_EDGE_CYCLES

@@ -226,9 +226,8 @@ def mattergen_sample(task: dict, mesh: Mesh, done: dict) -> dict:
     seconds = time.perf_counter() - t
     launches = fused_edge_chain.launches
     final, traj = out if record else (out, None)
-    c = model.config
     res = {"rows": int(local_na.shape[0]), "launches": launches, "seconds": seconds,
-           "plan": 0 if record else c.num_layers * (1 + c.n_corrector) * c.timesteps,
+           "plan": 0 if record else model.planned_launches(),
            "batch": _batch_dict(_gather(final, mesh, task))}
     if record:
         res["traj"] = _gather_traj(traj, rows.stop - rows.start, mesh, task)
@@ -317,17 +316,19 @@ def run_job(job: dict, mesh: Mesh | None = None) -> dict:
 
 
 def start(job_path: str | Path, ranks: int, port: int,
-          env: dict | None = None) -> list[subprocess.Popen]:
+          env: dict | None = None,
+          module: str = "matinvent_tpu_torch.experiments.dp_check") -> list[subprocess.Popen]:
     """Start ``job_path`` as ``ranks`` processes of one group at
-    ``127.0.0.1:port`` (``wait`` collects them)."""
+    ``127.0.0.1:port``, each ``python -m module --job job_path`` (this
+    module's by default; ``wait`` collects them)."""
     procs = []
     for r in range(ranks):
         e = dict(os.environ if env is None else env)
         e.update(MATINVENT_COORDINATOR=f"127.0.0.1:{port}", MATINVENT_NUM_PROCESSES=str(ranks),
                  MATINVENT_PROCESS_ID=str(r))
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "matinvent_tpu_torch.experiments.dp_check", "--job",
-             str(job_path)], env=e, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            [sys.executable, "-m", module, "--job", str(job_path)], env=e,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return procs
 
 
@@ -349,9 +350,10 @@ def wait(procs: list[subprocess.Popen], timeout: float) -> list[subprocess.Compl
 
 
 def launch(job_path: str | Path, ranks: int, port: int, timeout: float,
-           env: dict | None = None) -> list[subprocess.CompletedProcess]:
+           env: dict | None = None,
+           module: str = "matinvent_tpu_torch.experiments.dp_check") -> list[subprocess.CompletedProcess]:
     """``start`` then ``wait``."""
-    return wait(start(job_path, ranks, port, env), timeout)
+    return wait(start(job_path, ranks, port, env, module), timeout)
 
 
 def main(argv=None) -> int:

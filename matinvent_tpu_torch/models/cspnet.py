@@ -12,11 +12,17 @@ edge product over the distance embedding. The parameter stays one
 
 ``CSPNet`` is the JAX package's joint lattice/coord/type network with its
 options: a relaxed one-hot (``smooth``) or an embedding of the atomic
-number, layer norms, and a scalar head (``pred_scalar``, the property
-predictors). Its layers always take the lattice inner products, and the
-lattice head is always multiplied by the lattice: no caller sets the JAX
-module's ``ip=False``. It never runs the fused edge
-kernel: the JAX ``CSPNet`` builds its layers without ``fused_edge``.
+number, layer norms, a scalar head (``pred_scalar``, the property
+predictors), ``ip`` (True: the layers take the lattice inner products
+``L L^T`` and the lattice head is multiplied by the lattice; False: the
+layers take the raw lattice and the head is returned as it is) and
+``use_dis_emb`` (True: the edge input is the Fourier embedding of the
+coordinate differences, ``6 num_freqs`` lanes; False: the raw ``(x_j -
+x_i) mod 1``, 3 lanes, which narrows ``edge_mlp_0``'s input). Neither
+option reaches the fused edge kernel: ``CSPNet`` never runs it (the JAX
+``CSPNet`` builds its layers without ``fused_edge``; DiffCSP's net is one),
+and MatterGen's score net, which does, fixes ``ip=True`` and the Fourier
+embedding (JAX ``score_net.py:164``).
 """
 from __future__ import annotations
 
@@ -89,13 +95,16 @@ class CSPLayer(nn.Module):
 
     def __init__(
         self, hidden_dim: int = 128, num_freqs: int = 10, ln: bool = False,
+        use_dis_emb: bool = True,
     ):
         super().__init__()
         H = hidden_dim
         self.hidden_dim = H
         self.num_freqs = num_freqs
+        self.use_dis_emb = use_dis_emb
         self.layer_norm = nn.LayerNorm(H, eps=LN_EPS) if ln else None
-        self.edge_mlp_0 = nn.Linear(2 * H + 9 + 6 * num_freqs, H)
+        dis_dim = 6 * num_freqs if use_dis_emb else 3
+        self.edge_mlp_0 = nn.Linear(2 * H + 9 + dis_dim, H)
         self.edge_mlp_1 = nn.Linear(H, H)
         self.node_mlp_0 = nn.Linear(2 * H, H)
         self.node_mlp_1 = nn.Linear(H, H)
@@ -104,7 +113,7 @@ class CSPLayer(nn.Module):
         self,
         node_features: torch.Tensor,  # [B, A, H]
         frac_diff: torch.Tensor | None,  # [B, A, A, 3] (x_j - x_i) mod 1
-        lattice_ips: torch.Tensor,  # [B, 3, 3] lattice @ lattice.T (matmul3)
+        lattice_ips: torch.Tensor,  # [B, 3, 3] lattice @ lattice.T (matmul3), or the lattice
         edge_mask: torch.Tensor,  # [B, A, A] bool: j is a neighbor of i
         denom: torch.Tensor,  # [B, A] aggregation denominator per node
         dist_emb: torch.Tensor | None = None,  # hoisted Fourier embedding
@@ -146,10 +155,12 @@ class CSPLayer(nn.Module):
                 num_freqs=self.num_freqs,
             )
         else:
-            dist = (
-                dist_emb.to(dtype) if dist_emb is not None
-                else sinusoids_embedding(frac_diff.to(torch.float32), self.num_freqs).to(dtype)
-            )
+            if dist_emb is not None:
+                dist = dist_emb.to(dtype)
+            elif self.use_dis_emb:
+                dist = sinusoids_embedding(frac_diff.to(torch.float32), self.num_freqs).to(dtype)
+            else:
+                dist = frac_diff.to(dtype)
             term_d = F.linear(dist, w_d)  # [B, A, A, H], the one edge product
             edge = (
                 term_i[:, :, None, :]
@@ -195,6 +206,8 @@ class CSPNet(nn.Module):
         edge_style: str = "fc",
         cutoff: float = 6.0,
         max_neighbors: int = 20,
+        ip: bool = True,
+        use_dis_emb: bool = True,
     ):
         super().__init__()
         if edge_style not in ("fc", "knn"):
@@ -204,11 +217,12 @@ class CSPNet(nn.Module):
         self.hidden_dim, self.latent_dim, self.num_layers = H, latent_dim, num_layers
         self.max_atoms, self.num_freqs = max_atoms, num_freqs
         self.smooth = smooth
+        self.ip, self.use_dis_emb = ip, use_dis_emb
         self.pred_type, self.pred_scalar = pred_type, pred_scalar
         self.node_embedding = nn.Linear(max_atoms, H) if smooth else nn.Embedding(max_atoms, H)
         self.atom_latent_emb = nn.Linear(H + latent_dim, H)
         for i in range(num_layers):
-            setattr(self, f"csp_layer_{i}", CSPLayer(H, num_freqs, ln=ln))
+            setattr(self, f"csp_layer_{i}", CSPLayer(H, num_freqs, ln=ln, use_dis_emb=use_dis_emb))
         self.final_layer_norm = nn.LayerNorm(H, eps=LN_EPS) if ln else None
         self.coord_out = nn.Linear(H, 3, bias=False)
         if pred_scalar:
@@ -243,13 +257,14 @@ class CSPNet(nn.Module):
 
         frac_diff = (frac_coords[:, None, :, :] - frac_coords[:, :, None, :]) % 1.0
         # hoisted once per eval and shared across layers
-        dist_emb = sinusoids_embedding(frac_diff.to(torch.float32), self.num_freqs).to(dtype)
+        dist_emb = (sinusoids_embedding(frac_diff.to(torch.float32), self.num_freqs).to(dtype)
+                    if self.use_dis_emb else None)
         edge_mask, denom = edge_mask_and_denom(
             self.edge_style, frac_coords, lattice, num_atoms, mask,
             self.cutoff, self.max_neighbors,
         )
         # the layers' lattice term, once per eval
-        lattice_ips = matmul3(lattice, lattice.transpose(-1, -2))
+        lattice_ips = matmul3(lattice, lattice.transpose(-1, -2)) if self.ip else lattice
         for i in range(self.num_layers):
             node = getattr(self, f"csp_layer_{i}")(
                 node, frac_diff, lattice_ips, edge_mask, denom, dist_emb=dist_emb, dtype=dtype,
@@ -265,7 +280,8 @@ class CSPNet(nn.Module):
         coord_out = linear(self.coord_out, node, dtype)
         lattice_out = linear(self.lattice_out, graph_features, dtype)
         lattice_out = lattice_out.reshape(-1, 3, 3).to(torch.float32)
-        lattice_out = matmul3(lattice_out, lattice.to(torch.float32))
+        if self.ip:
+            lattice_out = matmul3(lattice_out, lattice.to(torch.float32))
         if self.pred_type:
             type_out = linear(self.type_out, node, dtype)
             return lattice_out, coord_out.to(torch.float32), type_out.to(torch.float32)

@@ -226,15 +226,13 @@ class DiffCSPDiffusion(nn.Module):
         super().__init__()
         self.config = c = config or DiffCSPConfig()
         self.device = resolve_device(device)
-        if not c.ip:
-            raise NotImplementedError("ip=False: the port's CSPNet always takes the lattice inner products")
         if c.sample_dtype not in _DTYPES:
             raise ValueError(f"sample_dtype must be one of {list(_DTYPES)}")
         self.decoder = CSPNet(
             hidden_dim=c.hidden_dim, latent_dim=c.time_dim, num_layers=c.num_layers,
             max_atoms=c.max_atomic_num, num_freqs=c.num_freqs, ln=c.ln,
             smooth=True, pred_type=True, edge_style=c.edge_style, cutoff=c.cutoff,
-            max_neighbors=c.max_neighbors,
+            max_neighbors=c.max_neighbors, ip=c.ip,
         ).to(self.device)
         self.beta = BetaSchedule.create(c.timesteps, c.scheduler_mode)
         self.sigma = SigmaSchedule.create(c.timesteps, c.sigma_begin, c.sigma_end)

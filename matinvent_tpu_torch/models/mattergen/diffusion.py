@@ -13,7 +13,9 @@ Every random draw comes from a ``NoiseSource``: by default
 
 On the card the sampling net sends each layer's fc edge branch through the
 hand-written kernel (``ops.fused_edge``) unless ``fused_edge=False`` is
-passed; a model with knn edges samples on the plain net. This differs
+passed; a model with knn edges samples on the plain net. The kernel takes
+every bucket's shape up to its shared memory (``ops.fused_edge.kernel_takes``;
+``planned_launches`` counts its launches). This differs
 from the JAX package, whose config key ``fused_edge_sampling`` defaults to
 false; the port has no such key (the config reader drops it).
 
@@ -725,6 +727,15 @@ class MatterGenDiffusion(nn.Module):
         plain net, as the JAX package's ``fused_edge_sampling`` requires
         fc)."""
         return fused_edge and self.config.edge_style == "fc"
+
+    def planned_launches(self, fused_edge: bool = True) -> int:
+        """Edge-kernel launches of sampling one bucket (or one padded
+        batch) on the card: one per layer and score-net eval, or 0 where
+        sampling runs the plain net."""
+        if not self._kernel_edges(fused_edge):
+            return 0
+        c = self.config
+        return c.num_layers * (1 + c.n_corrector) * c.timesteps
 
     @torch.no_grad()
     def sample(

@@ -17,9 +17,15 @@ _kernel``. The work is bound by arithmetic (two products of
 terms), so the kernel runs both products on the tensor cores (bf16 ``mma``,
 or 3xTF32 for float32), keeps the ``[A^2, H]`` intermediates in shared
 memory and registers, and in bf16 keeps the weights resident in shared
-memory of persistent blocks; see the source for its layout. On a CPU tensor
-the wrapper runs ``fused_edge_chain_plain``, the same math in plain
-PyTorch; a CUDA tensor never takes the plain version.
+memory of persistent blocks; see the source for its layout. Those tiled
+instances take widths 32/64/128/256, up to 64 atoms and 64 lanes; any other
+shape runs the kernel's wide route in the same source, which pads the width
+to 128-column passes and runs the j-sum of a crystal above 64 atoms over
+several 64-row chunks, as the Pallas kernel pads its blocks. The one limit
+is the wide route's shared memory (``kernel_takes``: widths up to 640 at 10
+frequencies). On a CPU tensor the wrapper runs
+``fused_edge_chain_plain``, the same math in plain PyTorch; a CUDA tensor
+never takes the plain version.
 
 The same kernel body, with parts switched off at compile time, serves the
 fused-edge harnesses (``matinvent_tpu_torch/experiments``) through
@@ -36,9 +42,15 @@ import numpy as np
 import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the tiled instances of csrc/fused_edge.cu: these widths, the edge rows of
+# a crystal row in one 64-row tile, at most 64 embedding lanes
 _HIDDEN = (32, 64, 128, 256)
-_MAX_ATOMS = 64  # edge rows of one crystal row fit one 64-row block
-_MAX_LANES = 64  # embedding lanes (6 * num_freqs for the sampler)
+_MAX_ATOMS = 64
+_MAX_LANES = 64
+# shared memory of one block that an H100 (sm_90) grants on opt-in, less
+# the wide kernel's static tables (fd, two row indices and u_j of 64 rows)
+_SMEM_OPTIN = 227 * 1024
+_WIDE_STATIC = 64 * (3 + 3) * 4
 # modes of csrc/fused_edge.cu's fused_edge_launch
 MODES = ("full", "nosin", "nobcast", "noagg", "gemmonly", "demb")
 
@@ -201,19 +213,57 @@ def launch_edge_kernel(
     return out
 
 
+def tiled(hidden: int, cap: int, lanes: int) -> bool:
+    """Whether a tiled instance of ``csrc/fused_edge.cu`` takes the shape
+    (``fused_edge_launch`` decides the same way); else the wide route runs."""
+    return hidden in _HIDDEN and cap <= _MAX_ATOMS and lanes <= _MAX_LANES
+
+
+def wide_smem_bytes(hidden: int, lanes: int) -> int:
+    """Dynamic shared memory of one block of the wide route, as
+    ``csrc/fused_edge.cu``'s ``WideSmem`` lays it out (f32): the embedding
+    tile [64, Kd + 4] (later the j-sum's 32 staging rows [32, 136]), e [64,
+    Hp + 4], two staged weight tiles [16, 136], one running sum per column
+    and the phase constants [3, lanes]; Kd is ``lanes`` and Hp the width
+    rounded up to 16 and 128."""
+    kd, hp = round_up(lanes, 16), round_up(hidden, 128)
+    return 4 * (max(64 * (kd + 4), 32 * 136) + 64 * (hp + 4) + 2 * 16 * 136 + hp + 3 * lanes)
+
+
+def _refusal(hidden: int, cap: int, num_freqs: int, dtype: torch.dtype) -> str | None:
+    """Why ``csrc/fused_edge.cu`` cannot take this shape, or None."""
+    if dtype not in _DTYPE_CODE:
+        return f"compute dtype must be float32 or bfloat16, got {dtype}"
+    if hidden < 1 or cap < 1 or num_freqs < 1:
+        return f"width, atoms and num_freqs must be positive, got {hidden}, {cap}, {num_freqs}"
+    lanes = 6 * num_freqs
+    if tiled(hidden, cap, lanes):
+        return None
+    need = wide_smem_bytes(hidden, lanes) + _WIDE_STATIC
+    if need > _SMEM_OPTIN:
+        return (f"width {hidden} with {num_freqs} frequencies needs {need} bytes of shared "
+                f"memory per block, more than the {_SMEM_OPTIN} a block can have")
+    return None
+
+
+def kernel_takes(hidden: int, cap: int, num_freqs: int, dtype: torch.dtype) -> bool:
+    """Whether the edge kernel takes a layer of width ``hidden`` over
+    crystals padded to ``cap`` atoms with ``num_freqs`` Fourier frequencies
+    in ``dtype``: the one rule ``fused_edge_chain`` enforces on CUDA, a
+    pure function of the shape. Any atom count and any width up to the
+    wide route's shared memory (``wide_smem_bytes``; 640 at 10
+    frequencies) in float32 or bfloat16."""
+    return _refusal(hidden, cap, num_freqs, dtype) is None
+
+
 def _check(term_i, term_j, frac_coords, ui, uj, wd, w1, b1, num_freqs):
     if term_i.dim() != 3:
         raise ValueError(f"term_i must be [B, A, H], got {tuple(term_i.shape)}")
     B, A, H = term_i.shape
     cdt = term_i.dtype
-    if cdt not in _DTYPE_CODE:
-        raise ValueError(f"compute dtype must be float32 or bfloat16, got {cdt}")
-    if H not in _HIDDEN:
-        raise ValueError(f"hidden width must be one of {_HIDDEN}, got {H}")
-    if not 1 <= A <= _MAX_ATOMS:
-        raise ValueError(f"atoms per crystal must be in 1..{_MAX_ATOMS}, got {A}")
-    if not 1 <= 6 * num_freqs <= _MAX_LANES:
-        raise ValueError(f"num_freqs must be in 1..{_MAX_LANES // 6}, got {num_freqs}")
+    why = _refusal(H, A, num_freqs, cdt)
+    if why is not None:
+        raise ValueError(why)
     check_tensors([
         ("term_i", term_i, (B, A, H), cdt),
         ("term_j", term_j, (B, A, H), cdt),
@@ -244,7 +294,8 @@ def fused_edge_chain(
     ``wd``, ``w1``, ``b1`` and the output are in the compute dtype (float32
     or bfloat16). On CUDA every tensor must be contiguous on one device;
     anything the kernel does not take raises. The launch is asynchronous on
-    the current stream; ``fused_edge_chain.launches`` counts the launches.
+    the current stream; ``fused_edge_chain.launches`` counts the launches
+    of either route.
     """
     if term_i.device.type == "cpu":
         return fused_edge_chain_plain(

@@ -105,17 +105,20 @@ class Mesh:
                             group=self.group)
         return tensor
 
-    def all_reduce_grads_(self, params) -> None:
+    def all_reduce_grads_(self, params, extra: torch.Tensor | None = None) -> torch.Tensor | None:
         """The gradients of ``params`` summed over the ranks, in one
-        collective."""
+        collective that also sums the 1-D ``extra`` (returned summed, or as
+        it is on one rank)."""
         grads = [p.grad for p in params if p.grad is not None]
-        if self.size == 1 or not grads:
-            return
-        flat = self.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+        if self.size == 1 or not (grads or extra is not None):
+            return extra
+        parts = [g.reshape(-1) for g in grads] + ([] if extra is None else [extra.reshape(-1)])
+        flat = self.all_reduce_(torch.cat(parts))
         off = 0
         for g in grads:
             g.copy_(flat[off: off + g.numel()].view_as(g))
             off += g.numel()
+        return None if extra is None else flat[off:]
 
     def all_gather_rows(self, tensor: torch.Tensor) -> torch.Tensor:
         """The ranks' ``tensor``s (of one shape: ``rows`` splits evenly)

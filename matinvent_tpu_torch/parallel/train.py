@@ -153,18 +153,21 @@ class FinetuneStep:
         ]
 
 
-def _ratio_stats(ratio: torch.Tensor, w: torch.Tensor, clip_eps: float,
-                 mesh: Mesh | None = None) -> dict[str, torch.Tensor]:
-    """Importance-ratio statistics over the valid transitions of one chunk
-    (of every rank's rows under ``mesh``): ``ratio`` ``[C, B]``, ``w`` the
-    ``[C, 1]`` validity weight. At the recording weights a correct replay
-    gives ratios of 1."""
+def _ratio_sums(ratio: torch.Tensor, w: torch.Tensor, clip_eps: float):
+    """This rank's sums of the importance-ratio statistics over the valid
+    transitions of one chunk, ``[sum ratio, count, clipped count]``, and
+    its largest ratio: ``ratio`` ``[C, B]``, ``w`` the ``[C, 1]`` validity
+    weight."""
     wb = torch.broadcast_to(w, ratio.shape)
     sums = torch.stack([torch.sum(ratio * wb), torch.sum(wb),
                         torch.sum((torch.abs(ratio - 1.0) > clip_eps) * wb)])
-    top = torch.max(ratio * wb)
-    if mesh is not None:
-        sums, top = mesh.all_reduce_(sums), mesh.all_reduce_(top.clone(), "max")
+    return sums, torch.max(ratio * wb)
+
+
+def _ratio_stats(sums: torch.Tensor, top: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The statistics from ``_ratio_sums`` (summed, and the largest, over
+    the ranks under a mesh). At the recording weights a correct replay
+    gives ratios of 1."""
     n = torch.clamp(sums[1], min=1.0)
     return dict(ratio_mean=sums[0] / n, ratio_max=top, clip_frac=sums[2] / n)
 
@@ -228,9 +231,10 @@ class DDPOFinetuneStep:
 
     # ------------------------------------------------------------ the update
     def chunk_loss(self, agent, traj, c: int, rows, num_atoms, mask, advantages,
-                   mesh: Mesh | None = None, total: int | None = None, **replay):
-        """(PPO loss of chunk ``c``, its ratio statistics); under ``mesh``
-        the loss is this rank's share of the mean over all ``total`` rows."""
+                   total: int | None = None, **replay):
+        """(PPO loss of chunk ``c``, this rank's ``_ratio_sums``); with
+        ``total`` (under a mesh) the loss is this rank's share of the mean
+        over all ``total`` rows."""
         sl = slice(c * self.chunk, (c + 1) * self.chunk)
         new_lp = self.new_logprob(agent, traj, sl, rows, num_atoms, mask, **replay)  # [C, B]
         old_lp = sum(traj[k][sl][:, rows] for k in self.lp_keys)
@@ -241,7 +245,7 @@ class DDPOFinetuneStep:
         w = self.valid(agent, steps)[:, None]
         n_rows = obj.shape[1] if total is None else total
         loss = -torch.sum(obj * w) / torch.clamp(torch.sum(w) * n_rows, min=1.0)
-        return loss, _ratio_stats(ratio.detach(), w, self.clip_eps, mesh)
+        return loss, _ratio_sums(ratio.detach(), w, self.clip_eps)
 
     def _n_chunks(self, traj) -> int:
         T = traj[self.step_key].shape[0]
@@ -267,22 +271,26 @@ class DDPOFinetuneStep:
         chunk: (mean chunk loss, ratio statistics: the chunks' mean ratio,
         their largest ratio and mean clipped fraction). Under ``mesh`` the
         trajectory, ``rows`` and ``advantages`` are this rank's, and the
-        gradients are summed over the ranks before the clip and the step."""
+        gradients are summed over the ranks before the clip and the step,
+        in one collective with the loss and the ratio sums (a second takes
+        the largest ratio)."""
         rows = torch.arange(num_atoms.shape[0], device=num_atoms.device) if rows is None else rows
         total = None if mesh is None else len(rows) * mesh.size
         losses, stats = [], []
         params = [p for p in agent.parameters() if p.requires_grad]
         for c in range(self._n_chunks(traj)):
             optimizer.zero_grad(set_to_none=True)
-            loss, st = self.chunk_loss(agent, traj, c, rows, num_atoms, mask, advantages,
-                                       mesh, total, **replay)
+            loss, (sums, top) = self.chunk_loss(agent, traj, c, rows, num_atoms, mask,
+                                                advantages, total, **replay)
             loss.backward()
+            seen = torch.cat([loss.detach().reshape(1), sums])
             if mesh is not None:
-                mesh.all_reduce_grads_(params)
+                seen = mesh.all_reduce_grads_(params, extra=seen)
+                top = mesh.all_reduce_(top.clone(), "max")
             clip_by_global_norm_(params, self.max_grad_norm)
             optimizer.step()
-            losses.append(loss.detach() if mesh is None else mesh.all_reduce_(loss.detach().clone()))
-            stats.append(st)
+            losses.append(seen[0])
+            stats.append(_ratio_stats(seen[1:], top))
         return self._epoch_stats(losses, stats)
 
     @torch.no_grad()
@@ -295,9 +303,15 @@ class DDPOFinetuneStep:
         rows = torch.arange(num_atoms.shape[0], device=num_atoms.device) if rows is None else rows
         zeros = torch.zeros(len(rows), device=num_atoms.device)
         total = None if mesh is None else len(rows) * mesh.size
-        out = [self.chunk_loss(agent, traj, c, rows, num_atoms, mask, zeros, mesh, total, **replay)
-               for c in range(self._n_chunks(traj))]
-        return self._epoch_stats([o[0] for o in out], [o[1] for o in out])[1]
+        losses, stats = [], []
+        for c in range(self._n_chunks(traj)):
+            loss, (sums, top) = self.chunk_loss(agent, traj, c, rows, num_atoms, mask, zeros,
+                                                total, **replay)
+            if mesh is not None:
+                sums, top = mesh.all_reduce_(sums), mesh.all_reduce_(top.clone(), "max")
+            losses.append(loss)
+            stats.append(_ratio_stats(sums, top))
+        return self._epoch_stats(losses, stats)[1]
 
     def advantages(self, rewards: torch.Tensor, baseline=None,
                    mesh: Mesh | None = None) -> torch.Tensor:

@@ -5,7 +5,10 @@ columns in the order they first appear, as the JAX package's pandas logger
 writes them (an empty field where a row has no value); it starts from the
 rows of an existing file, so a resumed run appends to them. ``PhaseTimer``
 times the phases of an RL iteration. ``WandBLogger`` logs to wandb where
-that package is installed, and raises ``ImportError`` where it is not.
+that package is installed, and raises ``ImportError`` where it is not; its
+``watch``, ``log_summary``, ``mark_preempting``, ``log_artifact`` and
+``finish`` make the JAX package's calls, and every logger takes its
+``config=`` (the base ``log_summary`` and ``finish`` do nothing).
 """
 from __future__ import annotations
 
@@ -52,13 +55,23 @@ def setup_logging() -> None:
 
 
 class Logger:
-    """Base metric logger with split prefixes."""
+    """Base metric logger with split prefixes; ``config`` is the run's
+    configuration, kept for the loggers that record it."""
+
+    def __init__(self, config=None) -> None:
+        self.config = config
 
     def log(self, update_dict: dict, step: int, split: str = ""):
         assert step is not None
         if split:
             update_dict = {f"{split}/{k}": v for k, v in update_dict.items()}
         return update_dict
+
+    def log_summary(self, summary_dict: dict[str, Any]) -> None:
+        pass
+
+    def finish(self) -> None:
+        pass
 
 
 def _field(v: Any) -> str:
@@ -75,7 +88,8 @@ def _field(v: Any) -> str:
 class CSVLogger(Logger):
     """Appends a row per step and rewrites ``<save_dir>/<fname>.csv``."""
 
-    def __init__(self, save_dir: str, fname: str = "metrics"):
+    def __init__(self, save_dir: str, fname: str = "metrics", config=None, **kwargs):
+        super().__init__(config)
         self.save_dir = save_dir
         self.fname = fname
         os.makedirs(save_dir, exist_ok=True)
@@ -116,6 +130,7 @@ class WandBLogger(Logger):
         config=None,
         **kwargs,
     ):
+        super().__init__(config)
         try:
             import wandb
         except ImportError as e:
@@ -124,8 +139,26 @@ class WandBLogger(Logger):
         wandb.init(name=name, project=project, entity=entity, group=group, mode=mode,
                    config=config, **kwargs)
 
+    def watch(self, model, log="all", log_freq: int = 1000) -> None:
+        self._wandb.watch(model, log=log, log_freq=log_freq)
+
     def log(self, update_dict: dict, step: int, split: str = "") -> None:
         self._wandb.log(super().log(update_dict, step, split), step=int(step))
+
+    def log_summary(self, summary_dict: dict[str, Any]) -> None:
+        for k, v in summary_dict.items():
+            self._wandb.run.summary[k] = v
+
+    def mark_preempting(self) -> None:
+        self._wandb.mark_preempting()
+
+    def log_artifact(self, name: str, type: str, file_location: str) -> None:
+        art = self._wandb.Artifact(name=name, type=type)
+        art.add_file(file_location)
+        art.save()
+
+    def finish(self) -> None:
+        self._wandb.finish()
 
 
 class PhaseTimer:

@@ -61,6 +61,13 @@ SHAPES = [(5, 4, 32, 3), (7, 8, 64, 10), (3, 1, 128, 10), (2, 64, 32, 10),
           (11, 8, 256, 10), (6, 12, 256, 10), (5, 16, 256, 10), (9, 20, 256, 10)]
 SHAPES += [(5, A, H, 10) for A in (1, 2, 3, 13, 20, 64) for H in (32, 64, 128, 256)]
 SHAPES += [(1, 1, 256, 10), (1, 20, 256, 10), (1, 64, 128, 10), (1, 3, 32, 4)]
+# the wide route: h384 and h512, caps above 64 atoms (one crystal row over
+# two and three 64-row chunks), widths of no tiled instance (odd ones too),
+# more than 10 frequencies, and the widest width it takes at 10
+WIDE_SHAPES = [(3, 20, 384, 10), (1, 1, 384, 10), (2, 65, 384, 10), (5, 13, 512, 10),
+               (2, 72, 256, 10), (2, 130, 64, 10), (3, 129, 32, 3), (4, 20, 48, 10),
+               (3, 8, 100, 11), (2, 7, 33, 2), (6, 20, 256, 16), (2, 20, 640, 10)]
+SHAPES += WIDE_SHAPES
 # f32: summation order only; bf16: e is rounded to bf16 before the second
 # product, and one flipped rounding moves an output by about one bf16 step
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
@@ -101,6 +108,25 @@ def test_kernel_splits_tiles_over_persistent_blocks(B, A, dtype):
     assert torch.equal(out, again)
 
 
+# the wide route's work items over persistent blocks: few, about as many as
+# resident blocks, many; rows i of 3 and 1 per item, and one per item over
+# two chunks (A = 72)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,A,H", [(7, 20, 384), (400, 20, 384), (300, 72, 256), (40, 72, 384)])
+def test_wide_route_splits_items_over_persistent_blocks(B, A, H, dtype):
+    _need_card()
+    args, mask = _inputs(B, A, H, 10, dtype, seed=B)
+    out = fused_edge_chain(*args, num_freqs=10)
+    torch.cuda.synchronize()
+    ref = fused_edge_chain_plain(*args, num_freqs=10)
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype] * scale
+    assert bool((out[~mask] == 0).all())
+    again = fused_edge_chain(*args, num_freqs=10)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
 def test_kernel_rejects_what_it_does_not_take():
     _need_card()
     args, _ = _inputs(2, 4, 32, 3, torch.float32)
@@ -108,9 +134,9 @@ def test_kernel_rejects_what_it_does_not_take():
         fused_edge_chain(args[0], args[1].half(), *args[2:], num_freqs=3)
     with pytest.raises(ValueError):  # non-contiguous term
         fused_edge_chain(args[0].transpose(0, 1), *args[1:], num_freqs=3)
-    with pytest.raises(ValueError):  # width the kernel has no instance for
-        a, _ = _inputs(2, 4, 48, 3, torch.float32)
-        fused_edge_chain(*a, num_freqs=3)
+    with pytest.raises(ValueError):  # wider than the wide route's shared memory
+        a, _ = _inputs(2, 4, 641, 10, torch.float32)
+        fused_edge_chain(*a, num_freqs=10)
 
 
 def test_score_net_kernel_matches_plain_on_card():

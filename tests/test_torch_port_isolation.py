@@ -99,9 +99,13 @@ MLIP_DIR = PACKAGE / "rewards" / "calculators" / "mlip"
 MLIP_STACK = {"quacc", "ase"}
 # the wandb logger imports wandb where it is installed (it raises where not);
 # distillation's teacher builder for published GemNet checkpoints imports the
-# external mattergen package and hydra (it raises JAX's ImportError where not)
+# external mattergen package and hydra (it raises JAX's ImportError where not);
+# the networked-run recipe's stages import the download client, the
+# mattergen wheel and the DGL ALIGNN stack inside the stages only
 OPTIONAL = {PACKAGE / "pipeline" / "logger.py": {"wandb"},
-            PACKAGE / "tools" / "distill_mattergen.py": {"hydra", "mattergen"}}
+            PACKAGE / "tools" / "distill_mattergen.py": {"hydra", "mattergen"},
+            PACKAGE / "tools" / "first_networked_run.py": {"huggingface_hub", "mattergen",
+                                                           "alignn", "jarvis"}}
 
 
 def test_ast_imports_are_torch_numpy_and_stdlib_only():
@@ -230,20 +234,25 @@ TOOL_MODULES = [
     "matinvent_tpu_torch.tools.convert_mattergen_ckpt",
     "matinvent_tpu_torch.tools.distill_mattergen",
     "matinvent_tpu_torch.tools.reward_ceiling",
+    "matinvent_tpu_torch.tools.train_predictor",
+    "matinvent_tpu_torch.tools.first_networked_run",
 ]
+# modules that import alone too; the weak-scaling harness runs gloo ranks
+# on the CPU by design, so it does not ask for a card
+IMPORT_ALONE = TOOL_MODULES + ["matinvent_tpu_torch.experiments.weak_scaling"]
 
 
 def test_tool_modules_import_alone_and_refuse_to_start_without_a_card():
     """Each tool imports with JAX, flax, optax, PyYAML and the JAX package
     blocked, and imports none of them; run as a user runs it without
     ``device=cpu``, each needs the card and says so."""
-    for name in TOOL_MODULES:
+    for name in IMPORT_ALONE:
         path = PACKAGE / Path(*name.split(".")[1:]).with_suffix(".py")
         assert _imports(path) <= ALLOWED | OPTIONAL.get(path, set()), name
     proc = _run(textwrap.dedent(
         f"""
         import importlib, runpy
-        for name in {TOOL_MODULES!r}:
+        for name in {IMPORT_ALONE!r}:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not bad, bad
@@ -257,6 +266,9 @@ def test_tool_modules_import_alone_and_refuse_to_start_without_a_card():
                                    "out=never_written"],
         "distill_mattergen": ["teacher=demo", "out=never_written"],
         "reward_ceiling": ["rewards=magnetic_density", "out=never_written/x.json"],
+        "train_predictor": ["data=experiments/data/corpus_r5.extxyz",
+                            "labels=never_written/labels.txt", "output_dir=never_written"],
+        "first_networked_run": ["stages=alex_table"],
     }
     for name in TOOL_MODULES:
         short = name.rsplit(".", 1)[1]
