@@ -174,6 +174,7 @@ from matinvent_tpu_torch.chem.structure import Structure, read_extxyz, save_extx
 from matinvent_tpu_torch.chem.validity import cell_size_ok, smact_valid, structure_validity
 from matinvent_tpu_torch.csrc.build import build, build_host
 from matinvent_tpu_torch.experiments import dp_check, fused_edge_ab, fused_edge_flat
+from matinvent_tpu_torch.experiments.edge_cycles import EDGE_SHAPES_RUNS, EDGE_SHAPES_SEED
 from matinvent_tpu_torch.experiments.phonon_check import heat_against_jax, phonon_pair, rocksalt
 from matinvent_tpu_torch.experiments.rl_profile import chunk_inputs, net_flops
 from matinvent_tpu_torch.experiments.timing import (
@@ -207,7 +208,7 @@ from matinvent_tpu_torch.ops.fused_edge import (
     fused_edge_chain_plain,
     kernel_takes,
     tiled,
-    wide_smem_bytes,
+    wide_layout,
 )
 from matinvent_tpu_torch.parallel.pretrain import PretrainTrainer, structures_to_batches
 from matinvent_tpu_torch.parallel.mesh import Mesh
@@ -353,20 +354,19 @@ CEILING_CPU = 512
 # phase edge_shapes: MatterGen models of random weights (seeded, scaled by
 # EDGE_SHAPES_SCALE as the CPU tests scale theirs, so the chains stay
 # finite), f32, at shapes the kernel's tiled instances do not take, which
-# its wide route runs: (name, hidden, max_atoms, crystals, buckets,
-# histogram over atom counts); h384/L6 in 2 buckets (every bucket on the
-# wide route), h256/L6 at max_atoms 72 in 3 buckets, the last capped above
-# 64 (it alone on the wide route). Every bucket launches the kernel as the
-# plan says. T is cut to 50 for time. Each bucket's first score-net eval
-# against the plain net within NET_TOL of max(1, scale), and its final
-# crystals against a plain-net run on the same draws: atom types equal,
-# fractional coordinates (circular) and lattices within EDGE_SHAPES_TOL
-EDGE_SHAPES_T, EDGE_SHAPES_SEED, EDGE_SHAPES_SCALE, EDGE_SHAPES_TOL = 50, 4, 0.02, 1e-3
-EDGE_SHAPES_RUNS = [
-    ("h384", 384, 20, 32, 2, {4: 1.0, 6: 1.0, 8: 1.0, 12: 1.0, 16: 1.0, 20: 1.0}),
-    ("cap72", 256, 72, 32, 3, {**{n: 1.0 for n in range(4, 13)}, **{n: 1.0 for n in range(30, 41)},
-                               **{n: 1.0 for n in range(66, 73)}}),
-]
+# its wide route runs: EDGE_SHAPES_RUNS of experiments/edge_cycles.py
+# (name, hidden, max_atoms, crystals, buckets, histogram over atom counts),
+# h384/L6 in 2 buckets (every bucket on the wide route), h256/L6 at
+# max_atoms 72 in 3 buckets, the last capped above 64 (it alone on the wide
+# route). Every bucket launches the kernel as the plan says. T is cut to 50
+# for time. Each bucket's first score-net eval against the plain net within
+# NET_TOL of max(1, scale), and its final crystals against a plain-net run
+# on the same draws: atom types equal, fractional coordinates (circular)
+# and lattices within EDGE_SHAPES_TOL. The wide route is also timed alone
+# at EDGE_SHAPES_WIDER widths on the h384 run's bucket shapes (the widest,
+# 640, is the widest f32 layout at 10 frequencies)
+EDGE_SHAPES_T, EDGE_SHAPES_SCALE, EDGE_SHAPES_TOL = 50, 0.02, 1e-3
+EDGE_SHAPES_WIDER = (512, 640)
 DEV = "cuda"
 BATCH, BUCKETS, MAX_ATOMS, SEED = 256, 4, 20, 0
 # phase sampling's plain edge path runs the kernel run's bucket plan and
@@ -498,15 +498,16 @@ _EDGE_MODE = {("0", "1", "1"): "full", ("1", "1", "1"): "nosin", ("0", "0", "0")
 
 def instance_name(mangled: str) -> str:
     """``fused_edge <mode> <dtype> H=<H>``, ``fused_edge full wide
-    <dtype>``, ``edge_flat bf16 H=256``, or the mangled name of an instance
-    nvcc reported."""
+    <dtype> R=<rows> KT=<tile rows> NS=<stages>``, ``edge_flat bf16
+    H=256``, or the mangled name of an instance nvcc reported."""
     m = _EDGE_INSTANCE.search(mangled)
     if m:
         dtype = "bf16" if m.group(1) != "f" else "f32"
         return f"fused_edge {_EDGE_MODE[m.group(3, 4, 5)]} {dtype} H={m.group(2)}"
-    m = re.search(r"fused_edge_wide_kernelI(13__nv_bfloat16|f)E", mangled)
+    m = re.search(r"fused_edge_wide_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi(\d+)E", mangled)
     if m:
-        return f"fused_edge full wide {'bf16' if m.group(1) != 'f' else 'f32'}"
+        dtype = "bf16" if m.group(1) != "f" else "f32"
+        return f"fused_edge full wide {dtype} R={m.group(2)} KT={m.group(3)} NS={m.group(4)}"
     m = re.search(r"edge_flat_kernelILi(\d+)E", mangled)
     return f"edge_flat bf16 H={m.group(1)}" if m else mangled
 
@@ -928,7 +929,8 @@ def time_path_kernel(plans, H: int, nf: int) -> dict:
     """``fused_edge_chain`` at a path's bucket shapes (random card inputs
     padded as the path pads them): per dtype the summed device time of one
     layer-eval over the buckets, launched from Python, of the plain version
-    and of the chain of PyTorch ops, and the bound of the same work."""
+    and of the chain of PyTorch ops, the bound of the same work and the
+    kernel's share of it (bound over time)."""
     gen = torch.Generator(device=DEV).manual_seed(5)
     row = {}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -944,6 +946,7 @@ def time_path_kernel(plans, H: int, nf: int) -> dict:
             b, row[f"{tag}_bound_by"] = bound(args, num_atoms, nf)
             acc["bound_ms"] += b
         row.update({f"{tag}_{k}": v for k, v in acc.items()})
+        row[f"{tag}_share_of_bound"] = acc["bound_ms"] / acc["ms"]
     return row
 
 
@@ -955,7 +958,9 @@ def phase_edge_shapes() -> dict:
     on the same inputs within ``NET_TOL`` of max(1, scale), the chains stay
     finite, and each bucket's final crystals match those of a plain-net run
     on the same draws (``EDGE_SHAPES_TOL``); the kernel is held against its
-    plain version at the buckets' shapes, and timed there."""
+    plain version at the buckets' shapes, and timed there, and at the h384
+    buckets also at ``EDGE_SHAPES_WIDER`` widths; the wide route's layout on
+    the card equals the rule's."""
     t0 = time.perf_counter()
     runs = {}
     for name, hidden, max_atoms, n, buckets, hist in EDGE_SHAPES_RUNS:
@@ -1029,8 +1034,16 @@ def phase_edge_shapes() -> dict:
                 raise AssertionError(f"edge_shapes {name} bucket {bi} (cap {cap}): final "
                                      f"crystals vs the plain run {e}")
         kernel = check_path_kernel(plans, hidden, nf)
-        timing = time_path_kernel(
-            [pl for pl, w in zip(plans, wide) if w], hidden, nf)
+        wide_plans = [pl for pl, w in zip(plans, wide) if w]
+        timing = time_path_kernel(wide_plans, hidden, nf)
+        if name == "h384":  # the kernel alone at wider widths, same buckets
+            wider = {}
+            for h in EDGE_SHAPES_WIDER:
+                if not all(kernel_takes(h, cap, nf, dt) for _, cap in wide_plans
+                           for dt in (torch.float32, torch.bfloat16)):
+                    raise AssertionError(f"edge_shapes: the kernel does not take h{h}")
+                wider[f"h{h}"] = dict(kernel_vs_plain=check_path_kernel(wide_plans, h, nf),
+                                      timing=time_path_kernel(wide_plans, h, nf))
         runs[name] = dict(hidden=hidden, layers=6, timesteps=EDGE_SHAPES_T, crystals=n,
                           caps=caps, wide_route=wide, kernel_launches=launches,
                           expected_launches=expected, first_eval_vs_plain_of_scale=first_errs,
@@ -1038,13 +1051,26 @@ def phase_edge_shapes() -> dict:
                           wide_buckets_timing=timing, sample_seconds=seconds,
                           plain_sample_seconds=plain_seconds)
         del model
+    runs["h384"]["wider"] = wider
+    # the wide route's layout on the card (rows per chunk, bytes) against the
+    # rule's, at the phase's widths, the widest of each dtype's layouts and
+    # past them, and at 88 frequencies
     lib = build("fused_edge").lib
-    lib.fused_edge_wide_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    smem = {h: lib.fused_edge_wide_smem_bytes(h, 60) for h in (256, 384)}
-    if smem != {h: wide_smem_bytes(h, 60) for h in smem}:
-        raise AssertionError(f"wide route's shared memory {smem} != the rule's")
+    for fn in (lib.fused_edge_wide_smem_bytes, lib.fused_edge_wide_rows):
+        fn.argtypes = [ctypes.c_int] * 3
+    layouts = {}
+    for h, lanes in [(256, 60), (384, 60), (512, 60), (640, 60), (641, 60), (1280, 60),
+                     (1281, 60), (256, 528)]:
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            rule = wide_layout(h, lanes, dtype)
+            card = (lib.fused_edge_wide_rows(h, lanes, code),
+                    lib.fused_edge_wide_smem_bytes(h, lanes, code))
+            if card != ((-1, -1) if rule is None else (rule[0], rule[3])):
+                raise AssertionError(f"wide layout at h{h}, {lanes} lanes, {dtype}: card "
+                                     f"{card}, rule {rule}")
+            layouts[f"h{h}_lanes{lanes}_{str(dtype)[6:]}"] = rule
     rec = dict(phase="edge_shapes", runs=runs, tol=NET_TOL, final_tol=EDGE_SHAPES_TOL,
-               weight_scale=EDGE_SHAPES_SCALE, wide_smem_bytes=smem,
+               weight_scale=EDGE_SHAPES_SCALE, wide_layouts=layouts,
                seconds=time.perf_counter() - t0)
     emit(rec)
     return rec
@@ -3236,6 +3262,8 @@ def main() -> int:
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     b = kern["buckets"]
     wide = edge["runs"]["h384"]["wide_buckets_timing"]
+    wide_more = {"cap72": edge["runs"]["cap72"]["wide_buckets_timing"],
+                 **{k: v["timing"] for k, v in edge["runs"]["h384"]["wider"].items()}}
     common = dict(route="cuda", impl="cuda", checked=True)
     emit({"kernels": [dict(common,
         name="fused_edge_chain",
@@ -3254,11 +3282,18 @@ def main() -> int:
         **{f"launches_edge_shapes_{k}": v["kernel_launches"] for k, v in edge["runs"].items()},
         # the wide route at the h384 run's two buckets, one layer-eval:
         # device time, launched from Python, plain version, chain of
-        # PyTorch ops, bound; errors of both edge_shapes runs' buckets
+        # PyTorch ops, bound and share of it; the same at the cap72 run's
+        # cap-72 bucket and, the kernel alone, at h512 and h640 on the h384
+        # buckets; errors of all of them
         **{f"wide_{k}": v for k, v in wide.items()},
-        wide_max_abs_err=max(v["kernel_vs_plain"]["max_abs_err_f32"] for v in edge["runs"].values()),
-        wide_max_abs_err_bf16=max(v["kernel_vs_plain"]["max_abs_err_bf16"]
-                                  for v in edge["runs"].values()),
+        **{f"wide_{name}_{k}": v for name, t in wide_more.items() for k, v in t.items()},
+        wide_max_abs_err=max([v["kernel_vs_plain"]["max_abs_err_f32"] for v in edge["runs"].values()]
+                             + [v["kernel_vs_plain"]["max_abs_err_f32"]
+                                for v in edge["runs"]["h384"]["wider"].values()]),
+        wide_max_abs_err_bf16=max([v["kernel_vs_plain"]["max_abs_err_bf16"]
+                                   for v in edge["runs"].values()]
+                                  + [v["kernel_vs_plain"]["max_abs_err_bf16"]
+                                     for v in edge["runs"]["h384"]["wider"].values()]),
         # DiffCSP, DDPO and knn edges run the plain net: checked to be 0
         launches_diffcsp_ddpo=[csp["iteration"]["kernel_launches"]] + [
             it["kernel_launches"] for rec in ddpo for it in rec["iterations"]],

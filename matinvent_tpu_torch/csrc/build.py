@@ -5,7 +5,9 @@ into ``matinvent_tpu_torch/_build/lib<name>-<hash>.so``, where the hash
 covers the source, every ``csrc/`` header it includes (directly or through
 another header) and the flags, so an edited source or header is rebuilt.
 A build with preprocessor defines (``build(name, ("FLAG",))``, for
-instrumented variants) is a library of its own.
+instrumented variants) is a library of its own, and so is a build of
+another directory's copy of the sources (``csrc=``, to measure an earlier
+version of a kernel beside the current one).
 Threads may build different sources at the same time: nvcc runs outside
 the lock. PyTorch's headers are not included and
 ``torch.utils.cpp_extension`` is not used: the build takes seconds. A
@@ -41,7 +43,7 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()  # guards _loaded
-_loaded: dict[tuple[str, tuple[str, ...]], "Built"] = {}
+_loaded: dict[tuple[str, tuple[str, ...], Path], "Built"] = {}
 
 
 class Built:
@@ -89,11 +91,11 @@ def source_digest(
     return h.hexdigest()[:16]
 
 
-def build(name: str, defines: tuple[str, ...] = ()) -> Built:
-    """Compile (once) and load ``csrc/<name>.cu``, with ``-D`` of each of
+def build(name: str, defines: tuple[str, ...] = (), csrc: Path = CSRC) -> Built:
+    """Compile (once) and load ``<csrc>/<name>.cu``, with ``-D`` of each of
     ``defines``."""
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    return _build(name, ".cu", flags, find_nvcc)
+    return _build(name, ".cu", flags, find_nvcc, Path(csrc))
 
 
 def build_host(name: str) -> Built:
@@ -108,13 +110,13 @@ def build_host(name: str) -> Built:
     return _build(name, ".cpp", GXX_FLAGS, gxx)
 
 
-def _build(name: str, suffix: str, flags: tuple[str, ...], compiler) -> Built:
-    key = (name, flags)
+def _build(name: str, suffix: str, flags: tuple[str, ...], compiler, csrc: Path = CSRC) -> Built:
+    key = (name, flags, csrc.resolve())
     with _lock:
         if key in _loaded:
             return _loaded[key]
-    src = CSRC / f"{name}{suffix}"
-    digest = source_digest(name, flags=flags, suffix=suffix)
+    src = csrc / f"{name}{suffix}"
+    digest = source_digest(name, csrc, flags=flags, suffix=suffix)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     log_path = lib_path.with_suffix(".log")

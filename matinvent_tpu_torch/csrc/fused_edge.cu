@@ -57,27 +57,40 @@
 //
 // The tiled instances above take H in {32, 64, 128, 256}, A <= 64 and at
 // most 64 lanes. Every other shape (h384, a bucket capped above 64 atoms,
-// more than 10 frequencies, an odd width) runs fused_edge_wide_kernel, the
-// same function on the same 64-row tiles, in the way the Pallas kernel
-// pads its blocks:
-//  * the width is padded to Hp, a multiple of kHc = 128 columns (the padded
-//    weight columns and rows read as 0, so the padded e columns are 0 and
-//    add nothing), and both products run pass by pass over 128 output
-//    columns; e stays whole in shared memory (f32, [64][Hp]) because every
-//    pass of the second product reads all of its Hp columns;
-//  * the weights stream from L2 through a two-stage ring of 16-row tiles,
-//    staged in registers so a tile's loads overlap the previous tile's
-//    products, as f32; both dtypes run mma.m16n8k8 in TF32: f32 as 3xTF32,
-//    bf16 as one product per fragment (a bf16 value is exact in TF32);
-//  * a crystal row i of A > 64 atoms has its A edge rows in consecutive
-//    64-row chunks of one block, and its j-sum runs on across the chunks
-//    (runs[], one f32 per column in shared memory), in the same order on
-//    every run;
-//  * the embedding is any number of lanes, rounded up to 16.
-// Its dynamic shared memory, 4 * (max(64 (Kd + 4), 32 * 136) + 64 (Hp + 4)
-// + 2 * 16 * 136 + Hp + 3 lanes) bytes (wide_smem_bytes; ops/fused_edge.py's
-// rule computes the same), bounds the width: 640 at 60 lanes. Up to
-// width 256 two blocks fit on an SM.
+// more than 10 frequencies, an odd width) runs fused_edge_wide_kernel. Its
+// weights do not fit a block's shared memory (w_1 alone is 288 KB at h384
+// in bf16), so they stream from L2 for every chunk of edge rows, and the
+// design is about what one streamed byte serves and how little waits:
+//  * chunks of R = 128 edge rows where the layout fits (64 otherwise: f32
+//    above width 256, or a wide embedding), so each weight byte fetched
+//    from L2 feeds 128 rows; all 8 warps share each weight tile, in bands
+//    of 32 rows;
+//  * the edge stream is packed: each crystal contributes only its live
+//    atoms' n_b^2 edges (n_b is one past its last atom with u_i or u_j
+//    nonzero; a block computes n_b and the offsets from u_i and u_j, so
+//    the padding of a bucket costs no products), its rows i >= n_b are
+//    written as 0, and each block takes one item of consecutive live rows,
+//    cut into R-row chunks across the rows i (a 72-atom crystal row fills
+//    its tiles). A row's j-sum runs on across chunks (runs[], one f32 per
+//    column). Above kTab crystals every row runs, as the Pallas kernel pads;
+//  * the width is padded to Hp, a multiple of kHc = 128 columns (weight
+//    columns and rows past H read as 0, so the padded e columns are 0), and
+//    both products run pass by pass over 128 output columns; e stays whole
+//    in shared memory because every pass of the second product reads it;
+//  * bf16: emb, e and the weight tiles are bf16 in shared memory, swizzled,
+//    and both products run as mma.m16n8k16 through ldmatrix; f32 keeps its
+//    operands in f32 and runs 3xTF32 mma.m16n8k8;
+//  * the weight tiles come by cp.async, in the compute dtype, through a
+//    ring that runs on across passes, products and chunks (every chunk
+//    reads the same tiles in the same order), so the next pass's first
+//    tiles land while the epilogues run; a barrier per tile is the ring's
+//    cost, so the tiles are as many rows as the layout holds;
+//  * the j-sum is the whole block's: rounds of 32 rows are staged in f32,
+//    and each thread sums 16 rows of one column; the two halves of a
+//    round meet in a fixed order, so two launches agree bit for bit.
+// Its layout is WideLayout (wide_layout picks the first entry of
+// WIDE_LAYOUTS_* that fits 227 KB; ops/fused_edge.py's rule computes the
+// same): widths up to 640 at 10 frequencies in f32 and 1280 in bf16.
 //
 // The launch function has a plain C interface (raw pointers, the stream),
 // returns cudaGetLastError(), and is bound from Python with ctypes
@@ -397,133 +410,263 @@ cudaError_t launch_typed(const EdgeArgs& a, cudaStream_t stream) {
 
 // ---------------------------------------------------------------- wide route
 
-constexpr int kHc = 128;             // output columns of one pass
-constexpr int kLdB = kHc + 8;        // row stride of a staged weight tile
-constexpr int kLdS = kHc + 8;        // row stride of the j-sum staging rows
-constexpr int kStageW = kKt * kLdB;  // floats of one weight tile
+constexpr int kHc = 128;       // output columns of one pass
+constexpr int kBand = 32;      // rows of one warp band and of one j-sum round
+constexpr int kLdS = kHc + 8;  // row stride of the j-sum staging rows (f32)
+constexpr int kTab = 256;      // crystals a block packs by their live atoms
+// dynamic shared memory one block may opt into on sm_90
+constexpr int kSmemOptin = 232448;
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// Float offsets of the wide kernel's dynamic shared memory. The j-sum's
-// staging rows lie over the embedding tile, which no pass of the second
-// product reads.
-struct WideSmem {
-  int Kd, Hp, ldEmb, ldE, emb, sums, e, ring, runs, fms, floats;
-  __host__ __device__ WideSmem(int H, int lanes)
-      : Kd(round_up(lanes, kKt)),
-        Hp(round_up(H, kHc)),
-        ldEmb(Kd + 4),
-        ldE(Hp + 4),
-        emb(0),
-        sums(0),
-        e(kRows * ldEmb > kSumRows * kLdS ? kRows * ldEmb : kSumRows * kLdS),
-        ring(e + kRows * ldE),
-        runs(ring + 2 * kStageW),
-        fms(runs + Hp),
-        floats(fms + 3 * lanes) {}
-};
-
-size_t wide_smem_bytes(int H, int lanes) {
-  return size_t(WideSmem(H, lanes).floats) * 4;
+// Element offset of (row, 8-element chunk) in a bf16 matrix of `ch` chunks
+// per row (a multiple of 8), swizzled as swz<CH> does.
+__device__ __forceinline__ int swz_rt(int row, int chunk, int ch) {
+  return row * ch * 8 + ((chunk ^ (row & 7)) << 3);
 }
 
-// acc = sA[:, :K] @ W[:K, n0 : n0 + kHc] for the 64-row tile sA (f32 in
-// shared memory, row stride lda), W row-major [kvalid, ncols] of T in
-// device memory (row stride ncols; rows past kvalid and columns past ncols
-// read as 0), K a multiple of kKt. The weight tiles pass through the
-// two-stage ring, each loaded into registers while the previous one is
-// multiplied. f32 runs 3xTF32; bf16 operands are exact in TF32, so one
-// product per fragment. Ends on a barrier.
-template <typename T>
-__device__ __forceinline__ void gemm_wide(const float* sA, int lda,
-                                          const T* __restrict__ W, int n0,
-                                          int K, int kvalid, int ncols,
-                                          float* ring, Acc<kHc>& acc,
-                                          int warp, int lane, int tid) {
-  using G = Geo<kHc>;
-  constexpr bool kSplit = sizeof(T) == 4;
-  constexpr int kPer = kKt * kHc / kThreads;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int arow = (warp / G::WARPS_N) * G::MI * 16 + g;
-  const int bcol = (warp % G::WARPS_N) * G::NI * 8 + g;
-  float v[kPer];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int idx = tid + p * kThreads;
-      const int k = k0 + idx / kHc;
-      const int col = n0 + idx % kHc;
-      v[p] = k < kvalid && col < ncols
-                 ? to_float(__ldg(W + static_cast<size_t>(k) * ncols + col))
-                 : 0.0f;
+// Warp tiling of an [R, kHc] pass: R / 32 bands of 32 rows (two 16-row
+// fragments each) times the column groups the other warps take.
+template <int R>
+struct WGeo {
+  static constexpr int WARPS_M = R / kBand;
+  static constexpr int WARPS_N = kWarps / WARPS_M;
+  static constexpr int MI = 2;
+  static constexpr int NI = kHc / (8 * WARPS_N);
+  static_assert(WARPS_M * WARPS_N == kWarps && NI % 2 == 0, "wide geometry");
+};
+template <int R>
+using WAcc = float[2][WGeo<R>::NI][4];
+
+// The wide route's dynamic shared memory at width H with `lanes` embedding
+// lanes, for R-row chunks and a ring of NS weight tiles of KT rows, as byte
+// offsets: the weight ring (NS tiles [KT, kHc] in the compute dtype), e [R, Hp],
+// the embedding tile [R, Kd] (which the j-sum's f32 staging rows [32, kLdS]
+// overlay once the first product is done), then per column the running
+// j-sum and one round's carry, the phase constants, the row tables and the
+// per-crystal live atoms and row and edge offsets (kTab crystals).
+// bf16 tiles are swizzled, f32 rows padded by 4 (e, emb) or 8 (the ring).
+struct WideLayout {
+  int R = 0, KT = 0, NS = 0, Kd = 0, Hp = 0, K2 = 0, ldEmb = 0, ldE = 0,
+      stage = 0;
+  int e = 0, emb = 0, runs = 0, carry = 0, fms = 0, fd = 0, ti_row = 0,
+      tj_row = 0, w_row = 0, u_row = 0, end_row = 0, nat = 0, off = 0,
+      roff = 0, bytes = 0;
+  __host__ __device__ WideLayout() {}
+  __host__ __device__ WideLayout(int H, int lanes, bool bf16, int rows,
+                                 int kt, int ns)
+      : R(rows), KT(kt), NS(ns) {
+    const int es = bf16 ? 2 : 4;
+    Hp = round_up(H, kHc);
+    Kd = bf16 ? round_up(lanes, 64) : round_up(lanes, KT);
+    K2 = round_up(H, KT);
+    ldEmb = bf16 ? Kd : Kd + 4;
+    ldE = bf16 ? Hp : Hp + 4;
+    stage = bf16 ? KT * kHc : KT * (kHc + 8);  // elements
+    e = NS * stage * es;
+    emb = e + R * ldE * es;
+    const int emb_bytes = R * ldEmb * es;
+    const int sum_bytes = kBand * kLdS * 4;
+    runs = emb + (emb_bytes > sum_bytes ? emb_bytes : sum_bytes);
+    carry = runs + Hp * 4;
+    fms = carry + kHc * 4;
+    fd = fms + 3 * lanes * 4;
+    ti_row = fd + 3 * R * 4;
+    tj_row = ti_row + R * 4;
+    w_row = tj_row + R * 4;
+    u_row = w_row + R * 4;
+    end_row = u_row + R * 4;
+    nat = end_row + R * 4;
+    off = nat + kTab * 4;
+    roff = off + (kTab + 1) * 4;
+    bytes = roff + (kTab + 1) * 4;
+  }
+};
+
+// The wide route's layouts, (R, KT, NS) per compute dtype, in the order of
+// preference: the first whose shared memory fits a block runs (wide_layout;
+// ops/fused_edge.py's rule walks the same table). Deeper rings and larger
+// weight tiles keep more bytes in flight, larger chunks serve more rows per
+// weight byte; the later entries take the widths and embeddings the
+// earlier ones cannot hold.
+#define WIDE_LAYOUTS_BF16(X) X(128, 64, 4) X(128, 32, 4) X(64, 32, 4)
+#define WIDE_LAYOUTS_F32(X) \
+  X(128, 16, 4) X(64, 32, 4) X(64, 16, 4) X(64, 8, 3)
+
+inline WideLayout wide_layout(int H, int lanes, bool bf16) {
+#define WIDE_TRY(r, kt, ns)                               \
+  {                                                       \
+    const WideLayout L(H, lanes, bf16, r, kt, ns);        \
+    if (L.bytes <= kSmemOptin) return L;                  \
+  }
+  if (bf16) {
+    WIDE_LAYOUTS_BF16(WIDE_TRY)
+  } else {
+    WIDE_LAYOUTS_F32(WIDE_TRY)
+  }
+#undef WIDE_TRY
+  return WideLayout();
+}
+
+// Weight tile [k0, k0 + KT) x [n0, n0 + kHc) of the row-major [kvalid, H]
+// matrix W into a ring stage; rows past kvalid and columns past H read as
+// 0. By cp.async where H keeps every 16-byte chunk aligned, else by plain
+// loads and stores (odd widths only). The caller commits.
+template <typename T, int KT>
+__device__ __forceinline__ void load_wtile(T* stage, const T* __restrict__ W,
+                                           int k0, int n0, int kvalid, int H,
+                                           int tid) {
+  constexpr int E = 16 / sizeof(T);  // elements of a chunk
+  constexpr int CH = kHc / E;        // chunks of a tile row
+  const bool vec = H % E == 0;
+  for (int idx = tid; idx < KT * CH; idx += kThreads) {
+    const int k = idx / CH;
+    const int c = idx % CH;
+    const int gk = k0 + k;
+    const int col = n0 + c * E;
+    T* dst;
+    if constexpr (sizeof(T) == 2) {
+      dst = stage + swz<CH>(k, c);
+    } else {
+      dst = stage + k * (kHc + 8) + c * E;
     }
-  };
-  auto put = [&](float* dst) {
+    if (vec) {
+      const bool ok = gk < kvalid && col < H;
+      cp_async16(dst, ok ? W + static_cast<size_t>(gk) * H + col : W,
+                 ok ? 16 : 0);
+    } else {
 #pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int idx = tid + p * kThreads;
-      dst[(idx / kHc) * kLdB + idx % kHc] = v[p];
-    }
-  };
-  zero_acc<kHc>(acc);
-  const int ntiles = K / kKt;
-  fetch(0);
-  put(ring);
-  __syncthreads();
-  for (int kt = 0; kt < ntiles; ++kt) {
-    if (kt + 1 < ntiles) fetch((kt + 1) * kKt);
-    const float* sB = ring + (kt & 1) * kStageW;
-#pragma unroll
-    for (int kk = 0; kk < kKt; kk += 8) {
-      const int ka = kt * kKt + kk;
-      unsigned ahi[G::MI][4], alo[G::MI][4];
-#pragma unroll
-      for (int mi = 0; mi < G::MI; ++mi) {
-        const float* p = sA + (arow + mi * 16) * lda + ka + t;
-        const float x[4] = {p[0], p[8 * lda], p[4], p[8 * lda + 4]};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if constexpr (kSplit) {
-            split_tf32(x[c], ahi[mi][c], alo[mi][c]);
-          } else {
-            ahi[mi][c] = to_tf32(x[c]);
-          }
-        }
+      for (int x = 0; x < E; ++x) {
+        dst[x] = gk < kvalid && col + x < H
+                     ? W[static_cast<size_t>(gk) * H + col + x]
+                     : from_float<T>(0.0f);
       }
-#pragma unroll
-      for (int ni = 0; ni < G::NI; ++ni) {
-        const float* q = sB + (kk + t) * kLdB + bcol + ni * 8;
-        unsigned bhi0, blo0, bhi1, blo1;
-        if constexpr (kSplit) {
-          split_tf32(q[0], bhi0, blo0);
-          split_tf32(q[4 * kLdB], bhi1, blo1);
-        } else {
-          bhi0 = to_tf32(q[0]);
-          bhi1 = to_tf32(q[4 * kLdB]);
-        }
-#pragma unroll
-        for (int mi = 0; mi < G::MI; ++mi) {
-          if constexpr (kSplit) {
-            mma_tf32(acc[mi][ni], alo[mi], bhi0, bhi1);
-            mma_tf32(acc[mi][ni], ahi[mi], blo0, blo1);
-          }
-          mma_tf32(acc[mi][ni], ahi[mi], bhi0, bhi1);
-        }
-      }
     }
-    if (kt + 1 < ntiles) put(ring + ((kt + 1) & 1) * kStageW);
-    __syncthreads();
   }
 }
 
-// The sampler's function (mode kFull) at any shape; see the header. Work
-// item k is rows_i whole rows (b, i) from row k * rows_i (rows_i =
-// floor(64 / A), or 1 when A > 64); its n_i * A edge rows g = il * A + j
-// run in 64-row chunks.
-template <typename T>
+// acc += sA[:, kbase : kbase + KT] @ sB for one ring stage sB, bf16: both
+// swizzled, sA with chA chunks per row; mma.m16n8k16 through ldmatrix.
+template <int R, int KT>
+__device__ __forceinline__ void mma_stage(const __nv_bfloat16* sA, int chA,
+                                          int kbase,
+                                          const __nv_bfloat16* sB,
+                                          WAcc<R>& acc, int warp, int lane) {
+  using G = WGeo<R>;
+  constexpr int CHB = kHc / 8;
+  const int arow = (warp / G::WARPS_N) * kBand + (lane & 15);
+  const int bchunk = (warp % G::WARPS_N) * G::NI + (lane >> 4);
+  const int brow = (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int ks = 0; ks < KT / 16; ++ks) {
+    unsigned a[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      ldmatrix_x4(a[mi], sA + swz_rt(arow + mi * 16,
+                                     (kbase + ks * 16) / 8 + (lane >> 4), chA));
+    }
+#pragma unroll
+    for (int nj = 0; nj < G::NI / 2; ++nj) {
+      unsigned b[4];
+      ldmatrix_x4_trans(b, sB + swz<CHB>(ks * 16 + brow, bchunk + nj * 2));
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
+        mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// The same in f32 as 3xTF32 (mma.m16n8k8 on split operands), sA with row
+// stride lda, sB with row stride kHc + 8.
+template <int R, int KT>
+__device__ __forceinline__ void mma_stage(const float* sA, int lda, int kbase,
+                                          const float* sB, WAcc<R>& acc,
+                                          int warp, int lane) {
+  using G = WGeo<R>;
+  constexpr int kLdb = kHc + 8;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int arow = (warp / G::WARPS_N) * kBand + g;
+  const int bcol = (warp % G::WARPS_N) * G::NI * 8 + g;
+#pragma unroll
+  for (int kk = 0; kk < KT; kk += 8) {
+    unsigned ahi[2][4], alo[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const float* p = sA + (arow + mi * 16) * lda + kbase + kk + t;
+      split_tf32(p[0], ahi[mi][0], alo[mi][0]);
+      split_tf32(p[8 * lda], ahi[mi][1], alo[mi][1]);
+      split_tf32(p[4], ahi[mi][2], alo[mi][2]);
+      split_tf32(p[8 * lda + 4], ahi[mi][3], alo[mi][3]);
+    }
+    // two fragment columns at a time, each of the three terms over their
+    // four accumulators before the next term, so that no product waits on
+    // the one before it (the terms keep their order per accumulator)
+#pragma unroll
+    for (int ni = 0; ni < G::NI; ni += 2) {
+      unsigned bhi[2][2], blo[2][2];
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        const float* q = sB + (kk + t) * kLdb + bcol + (ni + d) * 8;
+        split_tf32(q[0], bhi[d][0], blo[d][0]);
+        split_tf32(q[4 * kLdb], bhi[d][1], blo[d][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          mma_tf32(acc[mi][ni + d], alo[mi], bhi[d][0], bhi[d][1]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          mma_tf32(acc[mi][ni + d], ahi[mi], blo[d][0], blo[d][1]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          mma_tf32(acc[mi][ni + d], ahi[mi], bhi[d][0], bhi[d][1]);
+        }
+      }
+    }
+  }
+}
+
+// The crystal b holding packed row or edge x (off[b] <= x < off[b + 1];
+// empty crystals have off[b] == off[b + 1]): a binary search over
+// off[0..B].
+__device__ __forceinline__ int crystal_of(const int* off, int B, int x) {
+  int lo = 0, hi = B;  // off[lo] <= x < off[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (off[mid] <= x) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// The sampler's function (mode kFull) at any shape the tiled instances do
+// not take; see the header. The edge stream is packed: with at most kTab
+// crystals, crystal b contributes its n_b live rows i < n_b (n_b is one
+// past its last atom with u_i or u_j nonzero), each of n_b edges j < n_b,
+// from row offset roff[b] and edge offset off[b], and its rows i >= n_b are
+// written as 0 (u_i is 0 there); with more crystals every row runs (n_b =
+// A). One item per block takes rpi consecutive live rows, rpi the largest
+// count whose items need no more R-row chunks (rpi A edges at most) than
+// the fewest items the grid allows; an item's edges run in R-row chunks
+// that cross the rows i, and a row's j-sum runs on across its chunks.
+template <typename T, int R, int KT, int NS>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_edge_wide_kernel(const T* __restrict__ ti, const T* __restrict__ tj,
                            const float* __restrict__ fr,
@@ -532,178 +675,431 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const float* __restrict__ uj,
                            const T* __restrict__ wd, const T* __restrict__ w1,
                            const T* __restrict__ b1, T* __restrict__ out,
-                           int B, int A, int H, int lanes, int n_sin,
-                           int rows_i, int n_items) {
-  using G = Geo<kHc>;
+                           int B, int A, int H, int lanes, int n_sin) {
+  using G = WGeo<R>;
+  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ float fd_s[kRows][3];
-  __shared__ int ti_row[kRows];  // row (b, i) of term_i, -1 if dead
-  __shared__ int tj_row[kRows];  // row (b, j) of term_j
-  __shared__ float w_row[kRows];  // u_j of the row
-  const WideSmem L(H, lanes);
-  float* sm = reinterpret_cast<float*>(smem_raw);
-  float* emb = sm + L.emb;
-  float* e = sm + L.e;
-  float* ring = sm + L.ring;
-  float* sums = sm + L.sums;
-  float* runs = sm + L.runs;  // row i's j-sum so far, per column
-  float* fms = sm + L.fms;    // fmat [3][lanes]
+  const WideLayout L(H, lanes, kBf16, R, KT, NS);
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* e = reinterpret_cast<T*>(smem_raw + L.e);
+  T* emb = reinterpret_cast<T*>(smem_raw + L.emb);
+  float* sums = reinterpret_cast<float*>(smem_raw + L.emb);  // over emb
+  float* runs = reinterpret_cast<float*>(smem_raw + L.runs);  // per column
+  float* carry = reinterpret_cast<float*>(smem_raw + L.carry);
+  float* fms = reinterpret_cast<float*>(smem_raw + L.fms);  // fmat [3][lanes]
+  float* fd = reinterpret_cast<float*>(smem_raw + L.fd);    // [R][3]
+  int* ti_row = reinterpret_cast<int*>(smem_raw + L.ti_row);  // -1 if dead
+  int* tj_row = reinterpret_cast<int*>(smem_raw + L.tj_row);
+  float* w_row = reinterpret_cast<float*>(smem_raw + L.w_row);  // u_j
+  float* u_row = reinterpret_cast<float*>(smem_raw + L.u_row);  // u_i
+  int* end_row = reinterpret_cast<int*>(smem_raw + L.end_row);  // j = n_b - 1
+  int* nat = reinterpret_cast<int*>(smem_raw + L.nat);  // n_b
+  int* off = reinterpret_cast<int*>(smem_raw + L.off);    // edge offsets
+  int* roff = reinterpret_cast<int*>(smem_raw + L.roff);  // row offsets
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int n_q = B * A;
-  const int rbase = (warp / G::WARPS_N) * G::MI * 16 + lane / 4;
+  const int band = warp / G::WARPS_N;
+  const int rbase = band * kBand + lane / 4;
   const int cbase = (warp % G::WARPS_N) * G::NI * 8 + 2 * (lane % 4);
+  const int passes = L.Hp / kHc;
+  const int t1 = L.Kd / KT;  // weight tiles of a pass of each product
+  const int t2 = L.K2 / KT;
+  const int chE = L.Hp / 8;  // bf16 chunks of a row of e
+  const int chEmb = L.Kd / 8;
+
+#ifdef FUSED_EDGE_CYCLES
+  long long clk = clock64();
+#endif
   for (int c = tid; c < L.Hp; c += kThreads) runs[c] = 0.0f;
   for (int idx = tid; idx < 3 * lanes; idx += kThreads) fms[idx] = fmat[idx];
 
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int q0 = item * rows_i;
-    const int n_g = min(rows_i, n_q - q0) * A;
-    for (int g0 = 0; g0 < n_g; g0 += kRows) {
-      const int rows = min(kRows, n_g - g0);
-      // the previous chunk's readers of the tables, e and sums are done
-      __syncthreads();
-      if (tid < kRows) {
-        const int r = tid;
-        int qi = -1, qj = 0;
-        float w = 0.0f;
-        if (r < rows) {
-          const int il = (g0 + r) / A;
-          qi = q0 + il;
-          qj = (qi / A) * A + (g0 + r - il * A);
-          w = uj[qj];
+  // The weight stream: every chunk reads the same tiles in the same order
+  // (w_d pass by pass, then w_1 pass by pass), so the ring runs on across
+  // passes, products and chunks, NS - 1 tiles ahead of the products. The
+  // next tile to ask for is (matrix wn, pass pn, k-tile kn).
+  int slot_in = 0, slot_out = 0, wn = 0, pn = 0, kn = 0;
+  auto issue = [&]() {
+    load_wtile<T, KT>(ring + slot_in * L.stage, wn ? w1 : wd, kn * KT,
+                      pn * kHc, wn ? H : lanes, H, tid);
+    cp_async_commit();
+    if (++slot_in == NS) slot_in = 0;
+    if (++kn == (wn ? t2 : t1)) {
+      kn = 0;
+      if (++pn == passes) {
+        pn = 0;
+        wn ^= 1;
+      }
+    }
+  };
+  // acc = sA[:, :nt KT] @ the stream's next nt tiles (one pass)
+  auto gemm = [&](const T* sA, int nt, WAcc<R>& acc) {
 #pragma unroll
-          for (int s = 0; s < 3; ++s) {
-            const float d = fr[qj * 3 + s] - fr[qi * 3 + s];
-            fd_s[r][s] = d - floorf(d);
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int ni = 0; ni < G::NI; ++ni) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.0f;
+      }
+    }
+    for (int s = 0; s < nt; ++s) {
+      cp_async_wait<NS - 2>();
+      // the next tile has landed for every thread, and every thread is
+      // done with the stage the next issue overwrites
+      __syncthreads();
+      issue();
+      const T* sB = ring + slot_out * L.stage;
+      if (++slot_out == NS) slot_out = 0;
+      if constexpr (kBf16) {
+        mma_stage<R, KT>(sA, sA == e ? chE : chEmb, s * KT, sB, acc, warp,
+                         lane);
+      } else {
+        mma_stage<R, KT>(sA, sA == e ? L.ldE : L.ldEmb, s * KT, sB, acc,
+                         warp, lane);
+      }
+    }
+  };
+  for (int s = 0; s < NS - 1; ++s) issue();
+
+  // the packed stream's table: n_b by a shared-memory max over the live
+  // atoms, then off[] and roff[] by scans of n_b^2 and n_b in warp 0
+  const bool packed =
+      B <= kTab && static_cast<long long>(B) * A * A <= 0x7fffffffLL;
+  if (packed) {
+    for (int b = tid; b < B; b += kThreads) nat[b] = 0;
+    __syncthreads();
+    for (int idx = tid; idx < B * A; idx += kThreads) {
+      if (ui[idx] != 0.0f || uj[idx] != 0.0f) {
+        atomicMax(nat + idx / A, idx % A + 1);
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int edge_base = 0, row_base = 0;
+      for (int b0 = 0; b0 < B; b0 += 32) {
+        const int n = b0 + lane < B ? nat[b0 + lane] : 0;
+        int v = n * n, rv = n;
+#pragma unroll
+        for (int d = 1; d < 32; d *= 2) {
+          const int u = __shfl_up_sync(0xffffffffu, v, d);
+          const int ru = __shfl_up_sync(0xffffffffu, rv, d);
+          if (lane >= d) {
+            v += u;
+            rv += ru;
           }
         }
-        ti_row[r] = qi;
-        tj_row[r] = qj;
-        w_row[r] = w;
-      }
-      __syncthreads();
-      for (int idx = tid; idx < kRows * L.Kd; idx += kThreads) {
-        const int r = idx / L.Kd;
-        const int l = idx - r * L.Kd;
-        float x = 0.0f;
-        if (ti_row[r] >= 0 && l < lanes) {
-          const float ph = __fadd_rn(
-              __fadd_rn(__fmul_rn(fd_s[r][0], fms[l]),
-                        __fmul_rn(fd_s[r][1], fms[lanes + l])),
-              __fmul_rn(fd_s[r][2], fms[2 * lanes + l]));
-          x = round_to<T>(sin_or_cos(ph, l < n_sin));
+        if (b0 + lane < B) {
+          off[b0 + lane + 1] = edge_base + v;
+          roff[b0 + lane + 1] = row_base + rv;
         }
-        emb[r * L.ldEmb + l] = x;
+        edge_base += __shfl_sync(0xffffffffu, v, 31);
+        row_base += __shfl_sync(0xffffffffu, rv, 31);
       }
-      __syncthreads();
+      if (lane == 0) {
+        off[0] = 0;
+        roff[0] = 0;
+      }
+    }
+    __syncthreads();
+    // rows i >= n_b: 0, a warp per row over all blocks
+    for (int q = blockIdx.x * kWarps + warp; q < B * A;
+         q += gridDim.x * kWarps) {
+      if (q % A >= nat[q / A]) {
+        for (int c = lane; c < H; c += 32) {
+          out[static_cast<size_t>(q) * H + c] = from_float<T>(0.0f);
+        }
+      }
+    }
+  }
+  // the crystal, its live atoms and its first packed edge, of edge x
+  auto locate = [&](long long x, int& b, int& n, long long& ob) {
+    if (packed) {
+      b = crystal_of(off, B, static_cast<int>(x));
+      n = nat[b];
+      ob = off[b];
+    } else {
+      b = static_cast<int>(x / (static_cast<long long>(A) * A));
+      n = A;
+      ob = static_cast<long long>(b) * A * A;
+    }
+  };
+  // this block's item: rows [k rpi, (k + 1) rpi) of the n_rows live rows
+  const int n_rows = packed ? roff[B] : B * A;
+  const int rpi_min = (n_rows + gridDim.x - 1) / gridDim.x;
+  const int chunks = (rpi_min * A + R - 1) / R;  // per item, at most
+  const int rpi_max = chunks * R / A;
+  int rpi = rpi_max > rpi_min ? rpi_max : rpi_min;
+  if (rpi > n_rows) rpi = n_rows;
+  const int n_items = rpi > 0 ? (n_rows + rpi - 1) / rpi : 0;
+  // the first edge of live row l (the stream's end for l = n_rows)
+  auto edge_of_row = [&](int l) -> long long {
+    if (!packed) return static_cast<long long>(l) * A;
+    if (l >= n_rows) return off[B];
+    const int b = crystal_of(roff, B, l);
+    return off[b] + static_cast<long long>(l - roff[b]) * nat[b];
+  };
+  const int k = blockIdx.x;
+  const long long e0 = k < n_items ? edge_of_row(k * rpi) : 0;
+  const long long e1 = k < n_items ? edge_of_row(min((k + 1) * rpi, n_rows)) : 0;
+  EDGE_PHASE(0);  // constants, the packed stream's table, the ring's start
 
-      // e = silu(emb @ w_d + term_i + term_j), rounded to T, pass by pass;
-      // 0 on dead rows and padded columns
-      for (int n0 = 0; n0 < L.Hp; n0 += kHc) {
-        Acc<kHc> acc;
-        gemm_wide<T>(emb, L.ldEmb, wd, n0, L.Kd, lanes, H, ring, acc, warp,
-                     lane, tid);
+  const int c_sum = tid % kHc;  // the j-sum: this thread's column of a pass
+  const int sub = tid / kHc;    // and half of a round's 32 rows
+  for (long long g0 = e0; g0 < e1; g0 += R) {
+    const int rows = static_cast<int>(e1 - g0 < R ? e1 - g0 : R);
+    // the previous chunk's readers of the tables, e and the sums are done
+    __syncthreads();
+    if (tid < R) {
+      const int r = tid;
+      int qi = -1, qj = 0, end = 0;
+      float w = 0.0f, u = 0.0f;
+      if (r < rows) {
+        int b, n;
+        long long ob;
+        locate(g0 + r, b, n, ob);
+        const int local = static_cast<int>(g0 + r - ob);
+        const int i = local / n;
+        const int j = local - i * n;
+        qi = b * A + i;
+        qj = b * A + j;
+        end = j == n - 1;
+        w = uj[qj];
+        u = ui[qi];
 #pragma unroll
-        for (int mi = 0; mi < G::MI; ++mi) {
+        for (int s = 0; s < 3; ++s) {
+          const float d = fr[qj * 3 + s] - fr[qi * 3 + s];
+          fd[r * 3 + s] = d - floorf(d);
+        }
+      }
+      ti_row[r] = qi;
+      tj_row[r] = qj;
+      w_row[r] = w;
+      u_row[r] = u;
+      end_row[r] = end;
+    }
+    __syncthreads();
+    EDGE_PHASE(1);  // row tables and fd
+
+    // the embedding tile, 8 lanes per item, rounded to T by its store;
+    // lanes past `lanes` and dead rows are 0
+    for (int idx = tid; idx < R * chEmb; idx += kThreads) {
+      const int r = idx / chEmb;
+      const int l0 = (idx % chEmb) * 8;
+      const bool live = ti_row[r] >= 0;
+      float v[8];
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = rbase + mi * 16 + h * 8;
-            const int qi = ti_row[r];
-            const size_t oi = static_cast<size_t>(max(qi, 0)) * H;
-            const size_t oj = static_cast<size_t>(tj_row[r]) * H;
+      for (int k = 0; k < 8; ++k) {
+        const int l = l0 + k;
+        float x = 0.0f;
+        if (live && l < lanes) {
+          // rounded as written (no contraction), as the plain version sums
+          const float ph = __fadd_rn(
+              __fadd_rn(__fmul_rn(fd[r * 3], fms[l]),
+                        __fmul_rn(fd[r * 3 + 1], fms[lanes + l])),
+              __fmul_rn(fd[r * 3 + 2], fms[2 * lanes + l]));
+          x = sin_or_cos(ph, l < n_sin);
+        }
+        v[k] = x;
+      }
+      if constexpr (kBf16) {
+        uint4 u;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
-            for (int ni = 0; ni < G::NI; ++ni) {
-              const int col = n0 + cbase + ni * 8;
-              const float* v = acc[mi][ni] + 2 * h;
-              float x[2] = {0.0f, 0.0f};
+        for (int k = 0; k < 4; ++k) {
+          h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+        }
+        *reinterpret_cast<uint4*>(emb + swz_rt(r, l0 / 8, chEmb)) = u;
+      } else {
+        float* p = reinterpret_cast<float*>(emb) + r * L.ldEmb + l0;
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(p + 4) =
+            make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+    __syncthreads();
+    EDGE_PHASE(2);  // embedding tile
+
+    // e = silu(emb @ w_d + term_i + term_j), rounded to T by its store,
+    // pass by pass; 0 on dead rows and on the columns past H
+    for (int p = 0; p < passes; ++p) {
+      WAcc<R> acc;
+      gemm(emb, t1, acc);
+      EDGE_PHASE(3);  // first product
 #pragma unroll
-              for (int k = 0; k < 2; ++k) {
-                if (qi >= 0 && col + k < H) {
-                  x[k] = round_to<T>(silu(v[k] + to_float(__ldg(ti + oi + col + k)) +
-                                          to_float(__ldg(tj + oj + col + k))));
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + mi * 16 + h * 8;
+          const int qi = ti_row[r];
+          const T* tip = ti + static_cast<size_t>(max(qi, 0)) * H;
+          const T* tjp = tj + static_cast<size_t>(tj_row[r]) * H;
+          // the node terms of the fragment half, loaded all together so
+          // that their latencies overlap (pairs where H is even)
+          float2 pi[G::NI], pj[G::NI];
+#pragma unroll
+          for (int ni = 0; ni < G::NI; ++ni) {
+            const int col = p * kHc + cbase + ni * 8;
+            pi[ni] = pj[ni] = make_float2(0.0f, 0.0f);
+            if (qi >= 0) {
+              if (H % 2 == 0) {
+                if (col < H) {
+                  pi[ni] = load2(tip + col);
+                  pj[ni] = load2(tjp + col);
+                }
+              } else {
+                if (col < H) {
+                  pi[ni].x = to_float(tip[col]);
+                  pj[ni].x = to_float(tjp[col]);
+                }
+                if (col + 1 < H) {
+                  pi[ni].y = to_float(tip[col + 1]);
+                  pj[ni].y = to_float(tjp[col + 1]);
                 }
               }
+            }
+          }
+#pragma unroll
+          for (int ni = 0; ni < G::NI; ++ni) {
+            const int col = p * kHc + cbase + ni * 8;
+            const float* v = acc[mi][ni] + 2 * h;
+            float x[2] = {0.0f, 0.0f};
+            if (qi >= 0) {
+              if (col < H) x[0] = silu(v[0] + pi[ni].x + pj[ni].x);
+              if (col + 1 < H) x[1] = silu(v[1] + pi[ni].y + pj[ni].y);
+            }
+            if constexpr (kBf16) {
+              store2(e + swz_rt(r, col / 8, chE) + (col & 7), x[0], x[1]);
+            } else {
               store2(e + r * L.ldE + col, x[0], x[1]);
             }
           }
         }
       }
-      __syncthreads();
+      EDGE_PHASE(4);  // first epilogue: node terms, silu, e
+    }
 
-      // s = silu(e @ w_1 + b_1) * u_j, pass by pass, then the pass's j-sum:
-      // kSumRows rows at a time staged in f32 (over emb, which the first
-      // product's last barrier freed), thread c sums column n0 + c
-      // down the rows and writes out_i = u_i * sum_j when row i's run of A
-      // rows ends (runs[] carries it across chunks)
-      for (int n0 = 0; n0 < L.Hp; n0 += kHc) {
-        Acc<kHc> acc;
-        gemm_wide<T>(e, L.ldE, w1, n0, L.Hp, H, H, ring, acc, warp, lane,
-                     tid);
+    // s = silu(e @ w_1 + b_1) * u_j pass by pass, then the pass's j-sum
+    // in rounds of 32 rows (one warp band) staged in f32 over the
+    // embedding tile: the block's threads take a column and 16 rows
+    // each; the first half starts from runs[] and writes the rows i that
+    // end in it, the second writes those that end in it after the first,
+    // and carries its head to the first half's tail once both are done
+    // (resolved after the next round's first barrier, or after the
+    // pass's last round). Every run takes the same order.
+    const int rounds = (rows + kBand - 1) / kBand;
+    for (int p = 0; p < passes; ++p) {
+      WAcc<R> acc;
+      gemm(e, t2, acc);
+      EDGE_PHASE(5);  // second product
+      {
+        float bias[G::NI][2];
 #pragma unroll
-        for (int mi = 0; mi < G::MI; ++mi) {
+        for (int ni = 0; ni < G::NI; ++ni) {
+          const int col = p * kHc + cbase + ni * 8;
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            bias[ni][k] = col + k < H ? to_float(b1[col + k]) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const float w = w_row[rbase + mi * 16 + h * 8];
 #pragma unroll
             for (int ni = 0; ni < G::NI; ++ni) {
-              const int col = n0 + cbase + ni * 8;
               float* v = acc[mi][ni] + 2 * h;
-#pragma unroll
-              for (int k = 0; k < 2; ++k) {
-                const float b = col + k < H ? to_float(__ldg(b1 + col + k)) : 0.0f;
-                v[k] = silu(v[k] + b) * w;
-              }
+              v[0] = silu(v[0] + bias[ni][0]) * w;
+              v[1] = silu(v[1] + bias[ni][1]) * w;
             }
-          }
-        }
-        for (int r0 = 0; r0 < rows; r0 += kSumRows) {
-          __syncthreads();
-          for_each_acc<kHc>(acc, warp, lane,
-                            [&](int r, int c, float v0, float v1) {
-                              if (r >= r0 && r < r0 + kSumRows) {
-                                store2(sums + (r - r0) * kLdS + c, v0, v1);
-                              }
-                            });
-          __syncthreads();
-          if (tid < kHc) {
-            const int col = n0 + tid;
-            const int r1 = min(r0 + kSumRows, rows);
-            float run = runs[col];
-            int r = r0;
-            while (r < r1) {
-              // the rows of row i's run that lie in this stage, two sums
-              // apart
-              const int il = (g0 + r) / A;
-              const int end = (il + 1) * A - g0;
-              const int stop = min(r1, end);
-              float s0 = 0.0f, s1 = 0.0f;
-              for (; r + 1 < stop; r += 2) {
-                s0 += sums[(r - r0) * kLdS + tid];
-                s1 += sums[(r + 1 - r0) * kLdS + tid];
-              }
-              if (r < stop) s0 += sums[(r++ - r0) * kLdS + tid];
-              run += s0 + s1;
-              if (r == end) {
-                const size_t q = static_cast<size_t>(q0 + il);
-                if (col < H) out[q * H + col] = from_float<T>(run * ui[q]);
-                run = 0.0f;
-              }
-            }
-            runs[col] = run;
           }
         }
       }
+      EDGE_PHASE(6);  // second silu and u_j
+      const int col = p * kHc + c_sum;
+      float head = 0.0f, tail = 0.0f;  // the second half's, see above
+      int first_q = -1;                // its first row i that ends
+      float first_u = 0.0f;            // and that row's u_i
+      auto resolve = [&]() {
+        if (sub == 1) {
+          const float c0 = carry[c_sum];
+          if (first_q >= 0) {
+            if (col < H) {
+              out[static_cast<size_t>(first_q) * H + col] =
+                  from_float<T>((c0 + head) * first_u);
+            }
+            runs[col] = tail;
+          } else {
+            runs[col] = c0 + head;
+          }
+        }
+      };
+      for (int rd = 0; rd < rounds; ++rd) {
+        __syncthreads();  // the last round's sums and carries are read
+        if (rd > 0) resolve();
+        if (band == rd) {
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = lane / 4 + mi * 16 + h * 8;
+#pragma unroll
+              for (int ni = 0; ni < G::NI; ++ni) {
+                const float* v = acc[mi][ni] + 2 * h;
+                store2(sums + r * kLdS + cbase + ni * 8, v[0], v[1]);
+              }
+            }
+          }
+        }
+        __syncthreads();
+        const int r0 = rd * kBand + sub * (kBand / 2);
+        const int r1 = min(r0 + kBand / 2, rows);
+        float cur = sub == 0 ? runs[col] : 0.0f;
+        head = 0.0f;
+        first_q = -1;
+        // this thread's 16 staged values, loaded before the walk
+        float sv[kBand / 2];
+#pragma unroll
+        for (int k = 0; k < kBand / 2; ++k) {
+          sv[k] = r0 + k < r1 ? sums[(sub * (kBand / 2) + k) * kLdS + c_sum] : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < kBand / 2; ++k) {
+          if (r0 + k >= r1) break;
+          cur += sv[k];
+          if (end_row[r0 + k]) {
+            const int q = ti_row[r0 + k];
+            const float u = u_row[r0 + k];
+            if (sub == 1 && first_q < 0) {
+              first_q = q;
+              first_u = u;
+              head = cur;
+            } else if (col < H) {
+              out[static_cast<size_t>(q) * H + col] = from_float<T>(cur * u);
+            }
+            cur = 0.0f;
+          }
+        }
+        if (sub == 0) {
+          carry[c_sum] = cur;
+        } else if (first_q < 0) {
+          head = cur;
+        }
+        tail = cur;
+      }
+      __syncthreads();
+      resolve();
+      EDGE_PHASE(7);  // j-sum and output
     }
   }
+  cp_async_wait<0>();
 }
 
-template <typename T>
-cudaError_t launch_wide(const EdgeArgs& a, int H, cudaStream_t stream) {
-  auto* kernel = fused_edge_wide_kernel<T>;
-  const size_t smem = wide_smem_bytes(H, a.lanes);
+template <typename T, int R, int KT, int NS>
+cudaError_t launch_wide_as(const EdgeArgs& a, int H, size_t smem,
+                           cudaStream_t stream) {
+  auto* kernel = fused_edge_wide_kernel<T, R, KT, NS>;
   // the shared-memory opt-in (raised to the largest asked so far) and the
   // resident slots at the last size
   static size_t opted = 0, last = 0;
@@ -720,15 +1116,34 @@ cudaError_t launch_wide(const EdgeArgs& a, int H, cudaStream_t stream) {
     last = smem;
   }
   if (slots == 0) return cudaErrorInvalidConfiguration;
-  const int rows_i = a.A <= kRows ? kRows / a.A : 1;
-  const int n_items = (a.B * a.A + rows_i - 1) / rows_i;
-  const int grid = n_items < slots ? n_items : slots;
+  // one item per block; no more blocks than R-row chunks of the unpacked
+  // stream
+  const long long chunks =
+      (static_cast<long long>(a.B) * a.A * a.A + R - 1) / R;
+  const int grid = chunks < slots ? static_cast<int>(chunks) : slots;
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.ti), static_cast<const T*>(a.tj), a.fr, a.fmat,
       a.ui, a.uj, static_cast<const T*>(a.wd), static_cast<const T*>(a.w1),
       static_cast<const T*>(a.b1), static_cast<T*>(a.out), a.B, a.A, H,
-      a.lanes, a.n_sin, rows_i, n_items);
+      a.lanes, a.n_sin);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wide(const EdgeArgs& a, int H, cudaStream_t stream) {
+  const WideLayout L = wide_layout(H, a.lanes, sizeof(T) == 2);
+  const size_t smem = static_cast<size_t>(L.bytes);
+#define WIDE_RUN(r, kt, ns)                                          \
+  if (L.R == r && L.KT == kt && L.NS == ns) {                        \
+    return launch_wide_as<T, r, kt, ns>(a, H, smem, stream);         \
+  }
+  if constexpr (sizeof(T) == 2) {
+    WIDE_LAYOUTS_BF16(WIDE_RUN)
+  } else {
+    WIDE_LAYOUTS_F32(WIDE_RUN)
+  }
+#undef WIDE_RUN
+  return cudaErrorInvalidValue;  // no layout fits
 }
 
 // Whether the tiled instances take the shape (else the wide kernel runs).
@@ -850,10 +1265,16 @@ extern "C" int fused_edge_smem_bytes(int H, int dtype) {
   return static_cast<int>(bytes);
 }
 
-// Dynamic shared memory (bytes) of one block of the wide kernel at width H
-// and `lanes` embedding lanes (either dtype).
-extern "C" int fused_edge_wide_smem_bytes(int H, int lanes) {
-  return static_cast<int>(wide_smem_bytes(H, lanes));
+// Dynamic shared memory (bytes) of one block of the wide kernel at width H,
+// `lanes` embedding lanes and dtype (0 = float32, 1 = bfloat16), and the
+// rows of its chunks (fused_edge_wide_rows); -1 where no layout fits.
+extern "C" int fused_edge_wide_smem_bytes(int H, int lanes, int dtype) {
+  const WideLayout L = wide_layout(H, lanes, dtype != 0);
+  return L.R ? L.bytes : -1;
+}
+extern "C" int fused_edge_wide_rows(int H, int lanes, int dtype) {
+  const WideLayout L = wide_layout(H, lanes, dtype != 0);
+  return L.R ? L.R : -1;
 }
 
 #ifdef FUSED_EDGE_CYCLES

@@ -19,11 +19,12 @@ or 3xTF32 for float32), keeps the ``[A^2, H]`` intermediates in shared
 memory and registers, and in bf16 keeps the weights resident in shared
 memory of persistent blocks; see the source for its layout. Those tiled
 instances take widths 32/64/128/256, up to 64 atoms and 64 lanes; any other
-shape runs the kernel's wide route in the same source, which pads the width
-to 128-column passes and runs the j-sum of a crystal above 64 atoms over
-several 64-row chunks, as the Pallas kernel pads its blocks. The one limit
-is the wide route's shared memory (``kernel_takes``: widths up to 640 at 10
-frequencies). On a CPU tensor the wrapper runs
+shape runs the kernel's wide route in the same source, which streams the
+weights from L2 to chunks of 128 (or 64) edge rows cut across the rows i,
+pads the width to 128-column passes and carries a row's j-sum across
+chunks. The one limit is the wide route's shared memory (``wide_layout``,
+``kernel_takes``: widths up to 640 at 10 frequencies in float32, 1280 in
+bfloat16). On a CPU tensor the wrapper runs
 ``fused_edge_chain_plain``, the same math in plain PyTorch; a CUDA tensor
 never takes the plain version.
 
@@ -47,10 +48,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HIDDEN = (32, 64, 128, 256)
 _MAX_ATOMS = 64
 _MAX_LANES = 64
-# shared memory of one block that an H100 (sm_90) grants on opt-in, less
-# the wide kernel's static tables (fd, two row indices and u_j of 64 rows)
+# dynamic shared memory of one block that an H100 (sm_90) grants on opt-in;
+# the wide route keeps all of its shared memory there
 _SMEM_OPTIN = 227 * 1024
-_WIDE_STATIC = 64 * (3 + 3) * 4
+# the wide route's pass width and j-sum round (rows), and its layouts
+# (chunk rows, weight-tile rows, ring stages) per compute dtype in the
+# order csrc/fused_edge.cu's WIDE_LAYOUTS_* try them
+_WIDE_COLS, _WIDE_BAND, _WIDE_TAB = 128, 32, 256
+_WIDE_LAYOUTS = {
+    True: ((128, 64, 4), (128, 32, 4), (64, 32, 4)),
+    False: ((128, 16, 4), (64, 32, 4), (64, 16, 4), (64, 8, 3)),
+}
 # modes of csrc/fused_edge.cu's fused_edge_launch
 MODES = ("full", "nosin", "nobcast", "noagg", "gemmonly", "demb")
 
@@ -219,15 +227,47 @@ def tiled(hidden: int, cap: int, lanes: int) -> bool:
     return hidden in _HIDDEN and cap <= _MAX_ATOMS and lanes <= _MAX_LANES
 
 
-def wide_smem_bytes(hidden: int, lanes: int) -> int:
-    """Dynamic shared memory of one block of the wide route, as
-    ``csrc/fused_edge.cu``'s ``WideSmem`` lays it out (f32): the embedding
-    tile [64, Kd + 4] (later the j-sum's 32 staging rows [32, 136]), e [64,
-    Hp + 4], two staged weight tiles [16, 136], one running sum per column
-    and the phase constants [3, lanes]; Kd is ``lanes`` and Hp the width
-    rounded up to 16 and 128."""
-    kd, hp = round_up(lanes, 16), round_up(hidden, 128)
-    return 4 * (max(64 * (kd + 4), 32 * 136) + 64 * (hp + 4) + 2 * 16 * 136 + hp + 3 * lanes)
+def _wide_bytes(hidden: int, lanes: int, bf16: bool, rows: int, kt: int, ns: int) -> int:
+    """Bytes of ``csrc/fused_edge.cu``'s ``WideLayout`` for ``rows``-row
+    chunks and a ring of ``ns`` weight tiles of ``kt`` rows: the ring
+    ([kt, 128] each), e [rows, Hp], the embedding tile [rows, Kd] or, once
+    the first product is done, the j-sum's f32 staging rows [32, 136] over
+    it, then f32 runs [Hp] and carries [128], the phase constants [3,
+    lanes], the row tables (fd, two row indices, u_j, u_i and the row-end
+    flag per row) and the packed stream's table (live atoms of 256
+    crystals, 257 row and 257 edge offsets).
+    bf16 tiles are unpadded (swizzled); f32 rows are padded by 4 (e, emb)
+    or 8 (the ring). Hp is the width rounded up to 128, Kd the lanes
+    rounded up to 64 (bf16) or kt."""
+    es = 2 if bf16 else 4
+    hp = round_up(hidden, _WIDE_COLS)
+    kd = round_up(lanes, 64) if bf16 else round_up(lanes, kt)
+    pad_e, pad_ring = (0, 0) if bf16 else (4, 8)
+    ring = ns * kt * (_WIDE_COLS + pad_ring) * es
+    e = rows * (hp + pad_e) * es
+    emb = max(rows * (kd + pad_e) * es, _WIDE_BAND * (_WIDE_COLS + 8) * 4)
+    return (ring + e + emb + 4 * (hp + _WIDE_COLS + 3 * lanes) + 32 * rows
+            + 4 * (3 * _WIDE_TAB + 2))
+
+
+def wide_layout(hidden: int, lanes: int, dtype: torch.dtype) -> tuple[int, int, int, int] | None:
+    """``(rows, kt, stages, bytes)`` of the wide route's layout at this width
+    and lane count, as ``csrc/fused_edge.cu``'s ``wide_layout`` picks it:
+    the first of ``_WIDE_LAYOUTS`` whose shared memory fits a block (larger
+    chunks and deeper rings first); None if none fits."""
+    bf16 = dtype == torch.bfloat16
+    for rows, kt, ns in _WIDE_LAYOUTS[bf16]:
+        need = _wide_bytes(hidden, lanes, bf16, rows, kt, ns)
+        if need <= _SMEM_OPTIN:
+            return rows, kt, ns, need
+    return None
+
+
+def wide_smem_bytes(hidden: int, lanes: int, dtype: torch.dtype) -> int | None:
+    """Dynamic shared memory of one block of the wide route (``wide_layout``),
+    None where no layout fits."""
+    layout = wide_layout(hidden, lanes, dtype)
+    return None if layout is None else layout[3]
 
 
 def _refusal(hidden: int, cap: int, num_freqs: int, dtype: torch.dtype) -> str | None:
@@ -239,10 +279,10 @@ def _refusal(hidden: int, cap: int, num_freqs: int, dtype: torch.dtype) -> str |
     lanes = 6 * num_freqs
     if tiled(hidden, cap, lanes):
         return None
-    need = wide_smem_bytes(hidden, lanes) + _WIDE_STATIC
-    if need > _SMEM_OPTIN:
-        return (f"width {hidden} with {num_freqs} frequencies needs {need} bytes of shared "
-                f"memory per block, more than the {_SMEM_OPTIN} a block can have")
+    if wide_layout(hidden, lanes, dtype) is None:
+        return (f"width {hidden} with {num_freqs} frequencies in {dtype} needs more shared "
+                f"memory per block than the {_SMEM_OPTIN} bytes a block can have, even in "
+                f"64-row chunks")
     return None
 
 
@@ -251,8 +291,8 @@ def kernel_takes(hidden: int, cap: int, num_freqs: int, dtype: torch.dtype) -> b
     crystals padded to ``cap`` atoms with ``num_freqs`` Fourier frequencies
     in ``dtype``: the one rule ``fused_edge_chain`` enforces on CUDA, a
     pure function of the shape. Any atom count and any width up to the
-    wide route's shared memory (``wide_smem_bytes``; 640 at 10
-    frequencies) in float32 or bfloat16."""
+    wide route's shared memory (``wide_layout``; at 10 frequencies 640 in
+    float32, 1280 in bfloat16) in float32 or bfloat16."""
     return _refusal(hidden, cap, num_freqs, dtype) is None
 
 

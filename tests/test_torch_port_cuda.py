@@ -20,7 +20,7 @@ from matinvent_tpu_torch.models.mattergen.diffusion import (
     MatterGenDiffusion,
     MGNoised,
 )
-from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain, fused_edge_chain_plain
+from matinvent_tpu_torch.ops.fused_edge import fused_edge_chain, fused_edge_chain_plain, tiled
 from matinvent_tpu_torch.rewards.calculators.predictor import (
     DEFAULT_MODEL_DIR,
     TASK_MODEL_DICT,
@@ -62,11 +62,17 @@ SHAPES = [(5, 4, 32, 3), (7, 8, 64, 10), (3, 1, 128, 10), (2, 64, 32, 10),
 SHAPES += [(5, A, H, 10) for A in (1, 2, 3, 13, 20, 64) for H in (32, 64, 128, 256)]
 SHAPES += [(1, 1, 256, 10), (1, 20, 256, 10), (1, 64, 128, 10), (1, 3, 32, 4)]
 # the wide route: h384 and h512, caps above 64 atoms (one crystal row over
-# two and three 64-row chunks), widths of no tiled instance (odd ones too),
-# more than 10 frequencies, and the widest width it takes at 10
+# two and three chunks), widths of no tiled instance (odd ones too), more
+# than 10 frequencies, and the widest width it takes at 10 in f32; then
+# packed chunks (several crystal rows of 65-72 atoms, whose rows i cross
+# the chunk boundaries, cap 128, and a bucket of many small crystals at
+# h384) and the layouts past the 128-row chunks (88 frequencies at h256:
+# 64-row chunks in bf16, 8-row weight tiles in f32)
 WIDE_SHAPES = [(3, 20, 384, 10), (1, 1, 384, 10), (2, 65, 384, 10), (5, 13, 512, 10),
                (2, 72, 256, 10), (2, 130, 64, 10), (3, 129, 32, 3), (4, 20, 48, 10),
-               (3, 8, 100, 11), (2, 7, 33, 2), (6, 20, 256, 16), (2, 20, 640, 10)]
+               (3, 8, 100, 11), (2, 7, 33, 2), (6, 20, 256, 16), (2, 20, 640, 10),
+               (6, 70, 256, 10), (5, 67, 384, 10), (3, 128, 64, 10), (200, 6, 384, 10),
+               (2, 20, 256, 88)]
 SHAPES += WIDE_SHAPES
 # f32: summation order only; bf16: e is rounded to bf16 before the second
 # product, and one flipped rounding moves an output by about one bf16 step
@@ -87,6 +93,56 @@ def test_kernel_matches_plain(B, A, H, nf, dtype):
     assert out.dtype == dtype and out.shape == (B, A, H)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype] * scale
     assert bool((out[~mask] == 0).all())
+    if not tiled(H, A, 6 * nf):
+        # the wide route sums each row's j-sum in a fixed order: a second
+        # launch agrees bit for bit
+        again = fused_edge_chain(*args, num_freqs=nf)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+
+
+# the wide route packs each crystal's live atoms (one past its last atom
+# with u_i or u_j nonzero): atoms masked inside that prefix still run (times
+# 0), a crystal with no atom writes only zeros; with more crystals than a
+# block's table holds (256) every row runs
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,A,H", [(9, 20, 384), (40, 70, 256), (300, 9, 48)])
+def test_wide_route_packs_the_live_atoms(B, A, H, dtype):
+    _need_card()
+    args, mask = _inputs(B, A, H, 10, dtype, seed=7)
+    rng = np.random.default_rng(B)
+    keep = mask & torch.tensor(rng.uniform(size=(B, A)) > 0.2, device="cuda")
+    keep[-1] = False
+    na = keep.sum(1, keepdim=True).clamp(min=1).float()
+    ui = (keep.float() / na)[..., None].contiguous()
+    uj = keep.float()[..., None].contiguous()
+    args = (*args[:3], ui, uj, *args[5:])
+    out = fused_edge_chain(*args, num_freqs=10)
+    torch.cuda.synchronize()
+    ref = fused_edge_chain_plain(*args, num_freqs=10)
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype] * scale
+    assert bool((out[~keep] == 0).all())
+    again = fused_edge_chain(*args, num_freqs=10)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+# bf16 keeps e at half the bytes of f32, so its wide route takes widths the
+# f32 one refuses (64-row chunks past h640)
+@pytest.mark.parametrize("B,A,H", [(3, 9, 1024), (2, 70, 1280)])
+def test_wide_route_takes_wider_bf16_widths(B, A, H):
+    _need_card()
+    args, mask = _inputs(B, A, H, 10, torch.bfloat16)
+    out = fused_edge_chain(*args, num_freqs=10)
+    torch.cuda.synchronize()
+    ref = fused_edge_chain_plain(*args, num_freqs=10)
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16] * scale
+    assert bool((out[~mask] == 0).all())
+    with pytest.raises(ValueError):  # f32 needs twice the bytes for e
+        a, _ = _inputs(B, A, H, 10, torch.float32)
+        fused_edge_chain(*a, num_freqs=10)
 
 
 # persistent blocks walk the tiles: fewer tiles than resident blocks, about
@@ -109,10 +165,12 @@ def test_kernel_splits_tiles_over_persistent_blocks(B, A, dtype):
 
 
 # the wide route's work items over persistent blocks: few, about as many as
-# resident blocks, many; rows i of 3 and 1 per item, and one per item over
-# two chunks (A = 72)
+# resident blocks, many; short rows i packed into chunks, and rows of 72
+# atoms crossing them; the buckets of chip_smoke.py's phase edge_shapes
+# (7 x 8 and 25 x 20 at h384, 16 x 72 at h256)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,A,H", [(7, 20, 384), (400, 20, 384), (300, 72, 256), (40, 72, 384)])
+@pytest.mark.parametrize("B,A,H", [(7, 20, 384), (400, 20, 384), (300, 72, 256), (40, 72, 384),
+                                   (7, 8, 384), (25, 20, 384), (16, 72, 256)])
 def test_wide_route_splits_items_over_persistent_blocks(B, A, H, dtype):
     _need_card()
     args, mask = _inputs(B, A, H, 10, dtype, seed=B)

@@ -4,8 +4,9 @@ plan, on the CPU.
 JAX's Pallas kernel pads its blocks and takes any shape. The port's kernel
 (``csrc/fused_edge.cu``) runs its tiled instances at widths 32/64/128/256,
 caps up to 64 atoms and up to 10 Fourier frequencies, and its wide route at
-every other shape, up to the wide route's shared memory (width 640 at 10
-frequencies, 88 frequencies at width 256). ``kernel_takes`` states that
+every other shape, up to the wide route's shared memory (at 10 frequencies
+width 640 in float32 and 1280 in bfloat16; at width 256, 89 frequencies in
+float32 and 181 in bfloat16). ``kernel_takes`` states that
 rule as a pure function of the shape and ``_check`` enforces it; the
 sampler sends every bucket of an fc model through the kernel, so its plan
 counts every bucket. On the CPU the wrapper computes its plain version, so
@@ -34,17 +35,23 @@ F32, BF16 = torch.float32, torch.bfloat16
 
 # (hidden, cap, num_freqs, dtype) -> takes: the tiled instances' limits and
 # the wide route's just inside and just outside, in both compute dtypes
+# (None: bf16 only, which keeps e in half the bytes, so its widest layouts
+# reach further); then each dtype's own limits
 SHAPES = [
-    (h, cap, nf, dt, want)
+    (h, cap, nf, dt, want if want is not None else dt == BF16)
     for dt in (F32, BF16)
     for h, cap, nf, want in [
         (32, 20, 10, True), (64, 20, 10, True), (128, 20, 10, True), (256, 20, 10, True),
         (16, 20, 10, True), (48, 20, 10, True), (384, 20, 10, True), (512, 20, 10, True),
         (256, 1, 10, True), (256, 64, 10, True), (256, 65, 10, True), (256, 72, 10, True),
         (256, 0, 10, False), (256, 20, 1, True), (256, 20, 0, False), (256, 20, 11, True),
-        (640, 20, 10, True), (641, 20, 10, False), (256, 20, 88, True), (256, 20, 89, False),
+        (640, 20, 10, True), (641, 20, 10, None), (256, 20, 88, True), (256, 20, 89, True),
     ]
-] + [(256, 20, 10, torch.float16, False), (256, 20, 10, torch.float64, False)]
+] + [(256, 20, 10, torch.float16, False), (256, 20, 10, torch.float64, False)] + [
+    (384, 128, 10, F32, True), (384, 128, 10, BF16, True), (256, 20, 90, F32, False),
+    (1280, 72, 10, BF16, True), (1281, 20, 10, BF16, False),
+    (256, 20, 181, BF16, True), (256, 20, 182, BF16, False),
+]
 
 
 @pytest.mark.parametrize("hidden,cap,nf,dtype,want", SHAPES)
@@ -53,17 +60,48 @@ def test_kernel_takes_each_limit(hidden, cap, nf, dtype, want):
 
 
 def test_the_wide_routes_shared_memory_is_the_one_laid_out_in_the_source():
-    """``wide_smem_bytes`` against ``WideSmem`` of ``csrc/fused_edge.cu``
-    worked by hand at h384 / 60 lanes and h48 / 18 lanes (the card's
+    """``wide_smem_bytes`` against ``WideLayout`` of ``csrc/fused_edge.cu``
+    worked by hand at h384 / 60 lanes (128-row chunks of 64-row weight
+    tiles in bf16; 64-row chunks of 32-row tiles in f32, whose e would not
+    fit at 128 rows) and h48 / 18 lanes: ring + e + max(emb, the j-sum's
+    32 x 136 f32 staging rows) + 4 (Hp + 128 + 3 lanes) + 32 rows + the
+    packed stream's table 4 (3 x 256 + 2) (the card's
     ``fused_edge_wide_smem_bytes`` is compared in ``chip_smoke.py``)."""
-    assert fused_edge.wide_smem_bytes(384, 60) == 4 * (64 * 68 + 64 * 388 + 4352 + 384 + 180)
-    assert fused_edge.wide_smem_bytes(48, 18) == 4 * (4352 + 64 * 132 + 4352 + 128 + 54)
+    table = 4 * (3 * 256 + 2)
+    assert fused_edge.wide_smem_bytes(384, 60, BF16) == (
+        4 * 64 * 128 * 2 + 128 * 384 * 2 + 32 * 136 * 4 + 4 * (384 + 128 + 180) + 32 * 128 + table)
+    assert fused_edge.wide_smem_bytes(384, 60, F32) == (
+        4 * 32 * 136 * 4 + 64 * 388 * 4 + 64 * 68 * 4 + 4 * (384 + 128 + 180) + 32 * 64 + table)
+    assert fused_edge.wide_smem_bytes(48, 18, F32) == (
+        4 * 16 * 136 * 4 + 128 * 132 * 4 + 128 * 36 * 4 + 4 * (128 + 128 + 54) + 32 * 128 + table)
     assert fused_edge.tiled(256, 64, 60) and not fused_edge.tiled(256, 65, 60)
     assert not fused_edge.tiled(384, 20, 60) and not fused_edge.tiled(256, 20, 66)
 
 
-@pytest.mark.parametrize("hidden,cap,nf,dtype", [(641, 20, 10, F32), (1024, 72, 10, BF16),
-                                                 (256, 20, 89, F32), (256, 20, 10, torch.float16)])
+# (hidden, lanes, dtype) -> (chunk rows, weight-tile rows, ring stages,
+# bytes): the first of the layouts that fits, each worked by hand as above
+LAYOUTS = [
+    (384, 60, BF16, (128, 64, 4, 65536 + 98304 + 17408 + 2768 + 4096 + 3080)),
+    (384, 60, F32, (64, 32, 4, 69632 + 99328 + 17408 + 2768 + 2048 + 3080)),
+    # f32 h256 (the cap-72 bucket): emb 128 x 68 x 4 over the staging rows
+    (256, 60, F32, (128, 16, 4, 34816 + 133120 + 34816 + 2256 + 4096 + 3080)),
+    # bf16 h640: 64-row weight tiles no longer fit, 32-row ones do
+    (640, 60, BF16, (128, 32, 4, 32768 + 163840 + 17408 + 3792 + 4096 + 3080)),
+    # f32 at 88 frequencies: 64-row chunks, three 8-row tiles, emb 64 x 532 x 4
+    (256, 528, F32, (64, 8, 3, 13056 + 66560 + 136192 + 7872 + 2048 + 3080)),
+    (641, 60, F32, None),
+]
+
+
+@pytest.mark.parametrize("hidden,lanes,dtype,want", LAYOUTS)
+def test_the_wide_route_takes_the_first_layout_that_fits(hidden, lanes, dtype, want):
+    assert fused_edge.wide_layout(hidden, lanes, dtype) == want
+    if want is not None:
+        assert fused_edge.wide_smem_bytes(hidden, lanes, dtype) == want[3] <= 227 * 1024
+
+
+@pytest.mark.parametrize("hidden,cap,nf,dtype", [(641, 20, 10, F32), (1408, 72, 10, BF16),
+                                                 (256, 20, 90, F32), (256, 20, 10, torch.float16)])
 def test_the_kernels_check_still_raises_on_a_shape_it_cannot_take(hidden, cap, nf, dtype):
     """A direct call of the kernel's wrapper with such a shape raises before
     it looks at the device."""

@@ -53,7 +53,10 @@ def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-@pytest.mark.parametrize("B,A,H,nf", [(5, 4, 32, 3), (7, 8, 64, 10)])
+# the tiled instances' shapes, then the wide route's (h384 at cap 5, a
+# 72-atom cap at width 32, width 48, 11 frequencies) at small batch
+@pytest.mark.parametrize("B,A,H,nf", [(5, 4, 32, 3), (7, 8, 64, 10), (2, 5, 384, 10),
+                                      (2, 72, 32, 10), (3, 8, 48, 10), (3, 8, 64, 11)])
 def test_fused_edge_chain_plain_matches_jax_kernel(B, A, H, nf):
     rng = np.random.default_rng(B + A)
     ti = rng.normal(size=(B, A, H)).astype(np.float32)
