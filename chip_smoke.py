@@ -129,7 +129,17 @@ launch counts set to 0 just before and read just after:
   student's sample, none in training or in the teacher-scored sample);
   ``tools.reward_ceiling``'s scoring of the first 2,048 designs for two
   predictor rewards card against CPU, and 8 heat-capacity designs through
-  the MLIP bridge's worker on the card, held against JAX's record.
+  the MLIP bridge's worker on the card, held against JAX's record;
+* the JAX package's harnesses (phase ``harnesses``): ``rl_demo`` with
+  MatterGen at a tiny size (20 pretraining steps, one RL iteration of 32
+  crystals through ``matinvent_tpu_torch.main``), ``conditional_demo``'s
+  sampler on ``pretrained_conditional_v2`` at guidance 0 and 1 (the
+  guided launches doubled, the kernel against its plain version at their
+  shapes), ``post_rl_gen_eval``'s reward statistics of the archived
+  generations equal to JAX's record and a 1 x 32 generation of the
+  ``rl_hhi_rich5`` checkpoint, and one iteration of the archived
+  ``rl_gapbulk_mg_divoff`` recipe (two predictors, ``OptFilter``); the
+  MatterGen chains on the ``MG_STEPS`` grid.
 
 Kernel times are device times (CUDA graph replay, ``experiments/timing.py``).
 Each phase prints one JSON line (the harnesses print their own records
@@ -143,6 +153,7 @@ directories that it removes.
 from __future__ import annotations
 
 import copy
+import csv
 import dataclasses
 import ctypes
 import json
@@ -173,7 +184,14 @@ from matinvent_tpu_torch.chem.relax import SoftSphereRelaxer
 from matinvent_tpu_torch.chem.structure import Structure, read_extxyz, save_extxyz
 from matinvent_tpu_torch.chem.validity import cell_size_ok, smact_valid, structure_validity
 from matinvent_tpu_torch.csrc.build import build, build_host
-from matinvent_tpu_torch.experiments import dp_check, fused_edge_ab, fused_edge_flat
+from matinvent_tpu_torch.experiments import (
+    conditional_demo,
+    dp_check,
+    fused_edge_ab,
+    fused_edge_flat,
+    post_rl_gen_eval,
+    rl_demo,
+)
 from matinvent_tpu_torch.experiments.edge_cycles import EDGE_SHAPES_RUNS, EDGE_SHAPES_SEED
 from matinvent_tpu_torch.experiments.phonon_check import heat_against_jax, phonon_pair, rocksalt
 from matinvent_tpu_torch.experiments.rl_profile import chunk_inputs, net_flops
@@ -216,7 +234,7 @@ from matinvent_tpu_torch.parallel.train import FinetuneStep
 from matinvent_tpu_torch.parallel.train_predictor import PredictorTrainer, labeled_batches
 from matinvent_tpu_torch.pipeline import mat_invent
 from matinvent_tpu_torch.pipeline.baseline import Baseline
-from matinvent_tpu_torch.pipeline.filters import OptEval, ReferenceDataset
+from matinvent_tpu_torch.pipeline.filters import OptEval, OptFilter, ReferenceDataset
 from matinvent_tpu_torch.rewards.calculators import PropertyPredictor, SynScore
 from matinvent_tpu_torch.rewards.calculators.alignn import ALIGNN, ALIGNNModel, ALIGNNSpec
 from matinvent_tpu_torch.rewards.calculators.alignn.calc import usable as alignn_usable
@@ -351,6 +369,25 @@ DISTILL_GRAD_TOL = 1e-4
 # JAX's
 CEILING_REWARDS, CEILING_N, CEILING_TOL, CEILING_HEAT = ("magnetic_density", "gap_bulk"), 2048, 1e-5, 8
 CEILING_CPU = 512
+# phase harnesses: the JAX package's harnesses as a user runs them, cut to
+# the smoke's time. rl_demo with MatterGen (h128/L4, T=100) on its 400-
+# structure corpus: 20 pretraining steps at batch 32 and one RL iteration
+# of 32 samples; conditional_demo's sampler on pretrained_conditional_v2 at
+# the high density target, guidance 0 and 1, 32 crystals on the MG_STEPS
+# grid; post_rl_gen_eval's reward statistics of the two archived
+# generations (equal to JAX's record) and a 1 x 32 generation from the
+# rl_hhi_rich5 checkpoint, unrelaxed, on the MG_STEPS grid, against the
+# 2,000-structure reference set (the corpus_r5 match took most of phase
+# gen_eval's time); one iteration of the archived rl_gapbulk_mg_divoff
+# recipe on the MG_STEPS grid (the gap and bulk-modulus predictors, OptFilter)
+HARNESS_DEMO = ["family=mattergen", "n=400", "pretrain_steps=20", "pretrain_batch=32", "iters=1",
+                "batch=32"]
+COND_CKPT = ROOT / "experiments/results/pretrained_conditional_v2"
+HARNESS_COND_BATCH, HARNESS_COND_GAMMAS = 32, (0.0, 1.0)
+POST_RL_RECORD = ROOT / "experiments/results/post_rl_gen_eval_hhi_rich5.json"
+POST_RL_GENERATION = ROOT / "experiments/results/gen_eval_1024_post_hhi_rich5"
+HARNESS_REFERENCE = ROOT / "experiments/data/reference.extxyz"
+HARNESS_RECIPE = "rl_gapbulk_mg_divoff"
 # phase edge_shapes: MatterGen models of random weights (seeded, scaled by
 # EDGE_SHAPES_SCALE as the CPU tests scale theirs, so the chains stay
 # finite), f32, at shapes the kernel's tiled instances do not take, which
@@ -3205,6 +3242,140 @@ def phase_reward_ceiling() -> dict:
     return rec
 
 
+def _harness_demo(out: Path) -> dict:
+    """``rl_demo`` (MatterGen) as a user runs it, at ``HARNESS_DEMO``'s
+    size: the corpus, pretraining (the plain net: no launch) and one RL
+    iteration through the entry point (the sampler's plan)."""
+    summary, launches, plans, seconds, messages = _drive(
+        lambda: rl_demo.main([f"out={out}", *HARNESS_DEMO]), os.getcwd())
+    expected = _check_launches("harnesses rl_demo", launches, plans,
+                               load_model(out / "pretrained", device="cpu"))
+    with open(out / "rl_hhi" / "metrics.csv") as fh:
+        rows = list(csv.DictReader(fh))
+    written = json.loads((out / "summary.json").read_text())
+    if len(rows) != 1 or written["reward_curve"] != summary["reward_curve"] or \
+            not (out / "rl_hhi/models/final/params.msgpack").is_file():
+        raise AssertionError(f"harnesses rl_demo: metrics rows {rows}, summary {written}")
+    valid = [int(v) for m in messages for v in re.findall(r"Number of valid samples: (\d+)", m)]
+    return dict(kernel_launches=launches, expected_launches=expected, buckets=len(plans),
+                valid=valid, summary=summary, seconds_run=seconds,
+                **{k: rows[0].get(k) for k in ("time_sample_s", "time_score_s", "time_finetune_s")})
+
+
+def _harness_conditional(out: Path) -> dict:
+    """``conditional_demo``'s sampler on ``pretrained_conditional_v2`` at the
+    high target, ``HARNESS_COND_BATCH`` crystals per guidance factor on the
+    ``MG_STEPS`` grid: the launches per factor (doubled under guidance),
+    the kernel against its plain version at their bucket shapes, a finite
+    density for every row."""
+    structures, dens = conditional_demo.corpus(str(out))
+    cond_stats = (("density", float(dens.mean()), float(dens.std())),)
+    model = conditional_demo.conditional_model(str(COND_CKPT), cond_stats, MG_STEPS, device=DEV)
+    conditional_demo.register_corpus_histogram("cond_corpus", structures)
+    target = conditional_demo.density_targets(dens)[1]
+    rows, all_plans = [], []
+    for g in HARNESS_COND_GAMMAS:
+        got, launches, plans, seconds, _ = _drive(
+            lambda: conditional_demo.sampled_densities(model, target, g, "cond_corpus",
+                                                       batch_size=HARNESS_COND_BATCH), os.getcwd())
+        expected = model.planned_launches(guided=g > 0) * len(plans)
+        if launches != expected or expected == 0:
+            raise AssertionError(f"harnesses conditional g={g}: {launches} launches, plan {expected}")
+        row = conditional_demo.row(target, g, got)
+        if not row["n"] or not math.isfinite(row["sampled_density_mean"]):
+            raise AssertionError(f"harnesses conditional: {row}")
+        rows.append(dict(row, kernel_launches=launches, expected_launches=expected,
+                         buckets=len(plans), seconds=seconds))
+        all_plans += plans
+    c = model.config
+    kernel = check_path_kernel(all_plans, c.hidden_dim, c.num_freqs)
+    return dict(rows=rows, kernel_vs_plain=kernel, timesteps=MG_STEPS)
+
+
+def _harness_post_rl(out: Path) -> dict:
+    """``post_rl_gen_eval``: the archived post-RL generation scored equal to
+    JAX's record, then the harness at 1 x 32 unrelaxed crystals of the
+    ``rl_hhi_rich5`` checkpoint on the ``MG_STEPS`` grid against
+    ``HARNESS_REFERENCE`` (the pretrained side, the archived 1024
+    generation, equal to JAX's record too); the launches follow the
+    plan."""
+    record = json.loads(POST_RL_RECORD.read_text())
+    post = post_rl_gen_eval.score_extxyz(str(POST_RL_GENERATION / "generated_crystals.extxyz"),
+                                         "hhi", str(out / "score"), "post", DEV)
+    summary, launches, plans, seconds, _ = _drive(lambda: post_rl_gen_eval.main([
+        f"out={out}", f"corpus={HARNESS_REFERENCE}", "batch_size=32", "num_batches=1",
+        "relax=false", f"model.config_overrides.timesteps={MG_STEPS}"]), os.getcwd())
+    if post != record["post_rl"]["reward_stats"] or \
+            summary["pretrain"]["reward_stats"] != record["pretrain"]["reward_stats"]:
+        raise AssertionError(f"harnesses post_rl: archived generations scored {post} and "
+                             f"{summary['pretrain']['reward_stats']}, JAX's record {record}")
+    expected = _check_launches("harnesses post_rl", launches, plans,
+                               load_model(CKPT, device="cpu",
+                                          config_overrides={"timesteps": MG_STEPS}))
+    gen = summary["post_rl"]
+    fracs = [v for k, v in gen["gen_metrics"].items() if k.startswith("frac_")]
+    if gen["gen_metrics"]["num_generated"] != 32 or gen["reward_stats"]["n"] != 32 or \
+            not all(0.0 <= v <= 1.0 for v in fracs):
+        raise AssertionError(f"harnesses post_rl: {gen}")
+    return dict(archived_reward_stats_equal_jax=True, generation=gen, kernel_launches=launches,
+                expected_launches=expected, buckets=len(plans), seconds_run=seconds)
+
+
+def _harness_recipe(out: Path) -> dict:
+    """One iteration of the archived ``HARNESS_RECIPE`` as the entry point
+    builds it, on the ``MG_STEPS`` grid: the kernel against its plain
+    version at the iteration's bucket shapes, the launches its plan, the
+    two predictors on the card, ``OptFilter``, a finite reward."""
+    def run(log):
+        pipe = mat_invent.build(mat_invent.resolve(HARNESS_RECIPE, 1, MG_STEPS_SETS), str(out))
+        calcs = [p["calculator"] for p in pipe.reward.prop_cfg]
+        if not isinstance(pipe.filter, OptFilter) or not all(
+                isinstance(c, PropertyPredictor) and c.device.type == torch.device(DEV).type
+                for c in calcs):
+            raise AssertionError(f"{HARNESS_RECIPE}: filter {pipe.filter!r}, calculators {calcs}")
+        plan_sampler = copy.deepcopy(pipe.sampler)
+        na = plan_sampler._draw_num_atoms(pipe.sample_cfg["batch_size"] * pipe.sample_cfg["num_batches"])
+        cuts, caps = plan_sampler.bucket_plan(na)
+        c = pipe.agent.config
+        kernel = check_path_kernel([(na[idx], cap) for idx, cap in zip(cuts, caps)],
+                                   c.hidden_dim, c.num_freqs)
+        pipe.step = 0
+        it = _iteration(pipe, log, pipe.rl_step)
+        expected = pipe.agent.planned_launches() * len(caps)
+        if it["kernel_launches"] != expected or expected == 0 or \
+                not math.isfinite(float(it["reward_mean"])):
+            raise AssertionError(f"{HARNESS_RECIPE}: {it}, plan {expected}")
+        row = pipe.logger.rows[-1]
+        it.update(expected_launches=expected, filtered=log.numbers(r"Number of filtered samples: (\d+)"),
+                  **{k: row.get(k) for k in ("band_gap mean", "bulk_modulus mean", "frac_validity",
+                                             "frac_unique", "frac_novel")})
+        return it, kernel
+
+    it, kernel = _run_logged(run)
+    return dict(recipe=HARNESS_RECIPE, kernel_vs_plain=kernel, iteration=it)
+
+
+def phase_harnesses() -> dict:
+    """The JAX package's RL and conditional-generation harnesses as a user
+    runs them (``matinvent_tpu_torch.experiments``), in a temporary
+    directory, each part's launches read around it: ``rl_demo``,
+    ``conditional_demo``'s sampler, ``post_rl_gen_eval`` and the archived
+    ``rl_gapbulk_mg_divoff`` recipe (the constants above)."""
+    t0 = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_harnesses_"))
+    parts = {}
+    try:
+        for name, part in (("rl_demo", _harness_demo), ("conditional", _harness_conditional),
+                           ("post_rl", _harness_post_rl), ("recipe", _harness_recipe)):
+            t = time.perf_counter()
+            parts[name] = dict(part(out / name), seconds=time.perf_counter() - t)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    rec = dict(phase="harnesses", **parts, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
 def instances(build_rec: dict, library: str, prefix: str) -> list[dict]:
     """The build's instances of ``library`` whose name starts with
     ``prefix``: registers, spills and shared memory of each."""
@@ -3259,6 +3430,7 @@ def main() -> int:
     phase_convert()
     distilled = phase_distill()
     phase_reward_ceiling()
+    harnesses = phase_harnesses()
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     b = kern["buckets"]
     wide = edge["runs"]["h384"]["wide_buckets_timing"]
@@ -3310,6 +3482,15 @@ def main() -> int:
         # training (the plain net: 0)
         launches_distill=distilled["kernel_launches"],
         launches_distill_train=distilled["kernel_launches_train"],
+        # the harnesses (phase harnesses): rl_demo's iteration, each guidance
+        # factor of the conditional sampler (doubled under guidance),
+        # post_rl_gen_eval's generation and the archived gap-bulk recipe's
+        # iteration, each its plan
+        launches_harnesses=dict(
+            rl_demo=harnesses["rl_demo"]["kernel_launches"],
+            conditional=[r["kernel_launches"] for r in harnesses["conditional"]["rows"]],
+            post_rl=harnesses["post_rl"]["kernel_launches"],
+            recipe=harnesses["recipe"]["iteration"]["kernel_launches"]),
         max_abs_err=kern["max_abs_err_f32"],
         max_abs_err_bf16=kern["max_abs_err_bf16"],
         # one layer-eval of the batch: the sum over the bucket shapes, f32

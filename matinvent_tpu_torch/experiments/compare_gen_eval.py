@@ -18,6 +18,15 @@ import math
 import sys
 
 
+def binomial_z(a: float, b: float, n: int) -> dict:
+    """Two fractions' difference in units of the binomial sigma
+    ``sqrt(p (1 - p) / n)`` at their mean ``p``."""
+    p = (a + b) / 2
+    sigma = math.sqrt(p * (1 - p) / n)
+    z = 0.0 if a == b else abs(a - b) / sigma if sigma > 0 else math.inf
+    return dict(ours=a, record=b, sigma=sigma, z=z)
+
+
 def compare(ours: dict, record: dict, sigmas: float = 4.0) -> dict:
     n = record["num_generated"]
     tiers = record.get("by_matcher") or {record["structure_matcher"]: record}
@@ -25,12 +34,8 @@ def compare(ours: dict, record: dict, sigmas: float = 4.0) -> dict:
     rows, worst = {}, 0.0
     for tier, ref in tiers.items():
         for key, b in ref.items():
-            a = ours_tiers[tier][key]
-            p = (a + b) / 2
-            sigma = math.sqrt(p * (1 - p) / n)
-            z = 0.0 if a == b else abs(a - b) / sigma if sigma > 0 else math.inf
-            rows[f"{tier}/{key}"] = dict(ours=a, record=b, sigma=sigma, z=z)
-            worst = max(worst, z)
+            rows[f"{tier}/{key}"] = row = binomial_z(ours_tiers[tier][key], b, n)
+            worst = max(worst, row["z"])
     return dict(n=n, sigmas=sigmas, worst_z=worst, within=worst <= sigmas, fractions=rows)
 
 

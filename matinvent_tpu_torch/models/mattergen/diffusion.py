@@ -728,14 +728,16 @@ class MatterGenDiffusion(nn.Module):
         fc)."""
         return fused_edge and self.config.edge_style == "fc"
 
-    def planned_launches(self, fused_edge: bool = True) -> int:
+    def planned_launches(self, fused_edge: bool = True, guided: bool = False) -> int:
         """Edge-kernel launches of sampling one bucket (or one padded
-        batch) on the card: one per layer and score-net eval, or 0 where
-        sampling runs the plain net."""
+        batch) on the card: one per layer and score-net eval (two evals,
+        conditional and unconditional, where ``guided``: conditions with a
+        guidance factor other than 0), or 0 where sampling runs the plain
+        net."""
         if not self._kernel_edges(fused_edge):
             return 0
         c = self.config
-        return c.num_layers * (1 + c.n_corrector) * c.timesteps
+        return c.num_layers * (1 + c.n_corrector) * c.timesteps * (2 if guided else 1)
 
     @torch.no_grad()
     def sample(

@@ -1,41 +1,24 @@
 """Run recipes of the port's RL entry point, as Python dicts.
 
-``rl_hhi_rich5`` holds the values of the archived JAX run's resolved config
-(``experiments/results/rl_hhi_rich5/hparams.yaml``) without its Hydra
-``_target_`` keys: the h256/L6 start checkpoint, 64 samples from the
-``corpus_r5`` histogram per iteration, the invalid filter, the HHI reward,
-the diversity filter, replay, and the reward-weighted fine-tune. Paths of
+Every archived JAX run (``experiments/results/<name>/hparams.yaml``, 27 of
+them) is a recipe under its name: ``recipe_from_hparams`` reads its
+resolved config with the port's YAML reader, drops the Hydra ``_target_``
+keys (a model section names its suite under ``class``, ``MatterGenSuite``
+when absent; a calculator its class, ``Empirical`` when absent, the last
+component of the ``_target_``) and ``results_dir``, and takes the paths of
+the archive's checkout (``REPO_PATHS``) from ``experiments/`` on. Paths of
 the repository are relative to its root; the other paths are relative to
-the run's output directory.
-
-``rl_mag_rich_dense`` holds the values of the archived JAX run
-``experiments/results/rl_mag_rich_dense/hparams.yaml``: the same loop from
-the h256/L6 checkpoint ``pretrained_geneval_r4`` with the ``corpus_r4``
-histogram, rewarded by the predicted magnetic density (``maxv`` 0.04).
+the run's output directory. ``rl_hhi_ddpo``'s archive names a DiffCSP
+checkpoint outside the repository (``/tmp/...``); its recipe samples the
+in-repository ``experiments/results/pretrained``, of the same widths.
+``rl_hhi_mattergen_refscale``'s checkpoint is outside the repository too
+and has no in-repository copy: that recipe resolves but cannot run.
 
 ``diffcsp_hhi`` is the JAX package's default run, ``configs/base.yaml``
 with ``model/diffcsp.yaml``, ``pipeline/mat_invent.yaml`` and
 ``reward/hhi.yaml`` resolved (192 samples per iteration, the base sample
 filter, the reward-weighted fine-tune), on the in-repo DiffCSP checkpoint
-``experiments/results/pretrained``. ``rl_hhi_ddpo`` and
-``rl_hhi_ddpo_mattergen_t1000`` hold the values of the archived JAX DDPO
-runs' ``hparams.yaml`` (``experiments/results/<name>/``): 128 samples of at
-most 8 atoms, ``sample_clip`` 30, ``finetune_mode: ddpo``, on the DiffCSP
-checkpoint (lr 3e-6, one PPO epoch) and on
-``experiments/results/pretrained_mattergen_t1000`` (lr 3e-5, two epochs).
-A model section names its suite under ``class`` (the last component of the
-YAML's ``_target_``; ``MatterGenSuite`` when absent).
-
-``rl_heat_capacity_t1000`` holds the values of the archived JAX run
-``experiments/results/rl_heat_capacity_t1000/hparams.yaml``: 128 samples of
-at most 8 atoms from ``pretrained_mattergen_t1000`` (``matinvent_corpus``
-histogram, ``sample_clip`` 30), the reward-weighted fine-tune (lr 6e-4,
-``sigma`` 0.02, replay of 16), rewarded by the heat capacity of the
-``MLIPBridge`` phonon worker. ``rl_cond_ddpo`` holds those of
-``experiments/results/rl_cond_ddpo/hparams.yaml``: DDPO of the conditional
-checkpoint ``pretrained_conditional_v2`` (density 4.18, guidance 0.5, 64
-samples of at most 8 atoms, lr 3e-5, two PPO epochs), rewarded by the
-density.
+``experiments/results/pretrained``.
 
 ``REWARDS`` holds the reward sections of ``configs/reward/*.yaml`` whose
 calculators the port runs (the entry point's ``--reward NAME``, Hydra's
@@ -52,9 +35,9 @@ pipeline.sample_cfg.filter=<json>`` can.
 from __future__ import annotations
 
 import copy
+from pathlib import Path
 
-_SAMPLE = {"num_batches": 1, "max_num": 16, "filter": None}
-_FINETUNE = {"batch_size": 16, "accum_steps": 25, "epochs": 3, "sigma": 0.1}
+from matinvent_tpu_torch.utils.yaml_io import read_yaml
 
 
 def _prop(name: str, cls: str, target, minv, maxv, root: str | None = None,
@@ -128,116 +111,67 @@ BASE_FILTER = {
     "structure_matcher": "disordered",
 }
 
-RECIPES = {
-    "rl_hhi_rich5": {
-        "expname": "rl_hhi_rich5",
-        "seed": 0,
-        "rl_epoch": 60,
-        "sample_cfg": dict(_SAMPLE),
-        "eval_size": 16,
-        "pipeline": {
-            "rl_epoch": 60,
-            "seed": 0,
-            "save_dir": "./",
-            "save_freq": 60,
-            "sample_cfg": dict(_SAMPLE),
-            "topk_ratio": 0.5,
-            "replay": True,
-            "replay_args": {"buffer_size": 100, "sample_size": 10, "reward_cutoff": 0.1},
-            "div_filter": True,
-            "df_args": {"tol": 3, "buff": 6},
-            "finetune_cfg": dict(_FINETUNE),
-        },
-        "model": {
-            "model_name": "mattergen_base",
-            "seed": 0,
-            "model_cfg": {"hidden_dim": 256, "num_layers": 6, "time_dim": 256, "timesteps": 1000},
-            "sample_cfg": {
-                "batch_size": 64,
-                "num_batches": 1,
-                "num_atoms_distribution": "corpus_r5",
-                "max_atoms": 20,
-                "diffusion_guidance_factor": 0.0,
-                "num_atoms_distribution_file": "experiments/data/corpus_r5_num_atoms.json",
-            },
-            "finetune_cfg": {"batch_size": 16, "timesteps": 1000, "lr": 0.0001},
-            "model_path": "experiments/results/pretrained_geneval_r5_r5_long_s120000_ema",
-            "config_overrides": {"sample_clip": 30.0},
-        },
-        "reward": REWARDS["hhi"],
-        "logger": {"save_dir": "./"},
-    },
-}
-
 # keys that name files of the repository (skipped where absent)
 REPO_PATHS = (
     ("model", "model_path"),
     ("model", "sample_cfg", "num_atoms_distribution_file"),
     ("pipeline", "sample_cfg", "filter", "reference", "structures_path"),
     ("pipeline", "sample_cfg", "filter", "reference", "energies_path"),
+    ("sample_cfg", "filter", "reference", "structures_path"),
+    ("sample_cfg", "filter", "reference", "energies_path"),
 )
 
-RECIPES["rl_hhi_rich5_opt_filter"] = copy.deepcopy(RECIPES["rl_hhi_rich5"])
 
-_MAG = copy.deepcopy(RECIPES["rl_hhi_rich5"])
-_MAG.update(expname="rl_mag_rich_dense", rl_epoch=120)
-_MAG["pipeline"].update(rl_epoch=120, save_freq=120)
-_MAG["model"]["sample_cfg"].update(
-    num_atoms_distribution="corpus_r4",
-    num_atoms_distribution_file="experiments/data/corpus_r4_num_atoms.json",
-)
-_MAG["model"]["model_path"] = "experiments/results/pretrained_geneval_r4"
-_MAG["reward"] = _section(_prop("magnetic_density", _PP, "ascending", 0.0, 0.04))
-RECIPES["rl_mag_rich_dense"] = _MAG
-RECIPES["rl_hhi_rich5_opt_filter"]["pipeline"]["sample_cfg"]["filter"] = dict(BASE_FILTER)
-
-_DDPO_PIPELINE = {
-    "topk_ratio": 0.5,
-    "replay": True,
-    "replay_args": {"buffer_size": 100, "sample_size": 10, "reward_cutoff": 0.1},
-    "div_filter": True,
-    "df_args": {"tol": 3, "buff": 6},
-    "finetune_cfg": dict(_FINETUNE),
-    "finetune_mode": "ddpo",
-}
+# a ``_target_``'s class where the port builds it by default: no ``class`` key
+_DEFAULT_CLASS = {"model": "MatterGenSuite", "calculator": "Empirical"}
 
 
-def _ddpo(expname: str, rl_epoch: int, model: dict) -> dict:
-    return {
-        "expname": expname,
-        "seed": 0,
-        "rl_epoch": rl_epoch,
-        "sample_cfg": dict(_SAMPLE),
-        "eval_size": 16,
-        "pipeline": {"rl_epoch": rl_epoch, "seed": 0, "save_dir": "./", "save_freq": rl_epoch,
-                     "sample_cfg": dict(_SAMPLE), **copy.deepcopy(_DDPO_PIPELINE)},
-        "model": model,
-        "reward": copy.deepcopy(REWARDS["hhi"]),
-        "logger": {"save_dir": "./"},
-    }
+def _from_targets(node, key: str | None = None):
+    """A config tree with each ``_target_`` dropped, a model's or a
+    calculator's class kept under ``class`` where it is not the default."""
+    if isinstance(node, list):
+        return [_from_targets(v, key) for v in node]
+    if not isinstance(node, dict):
+        return node
+    out = {}
+    for k, v in node.items():
+        if k != "_target_":
+            out[k] = _from_targets(v, k)
+        elif key in _DEFAULT_CLASS and v.rsplit(".", 1)[-1] != _DEFAULT_CLASS[key]:
+            out["class"] = v.rsplit(".", 1)[-1]
+    return out
 
 
-RECIPES["rl_hhi_ddpo"] = _ddpo("rl_hhi", 40, {
-    "class": "DiffCSPSuite",
-    "model_name": "diffcsp",
-    "seed": 0,
-    "model_cfg": {"hidden_dim": 128, "num_layers": 4, "time_dim": 256, "timesteps": 1000},
-    "sample_cfg": {"batch_size": 128, "num_batches": 1, "num_atoms_distribution": "mp_20",
-                   "max_atoms": 8},
-    "finetune_cfg": {"batch_size": 16, "timesteps": 1000, "lr": 3e-06, "ddpo_epochs": 1},
-    "model_path": "experiments/results/pretrained",
-    "config_overrides": {"sample_clip": 30.0},
-})
-RECIPES["rl_hhi_ddpo_mattergen_t1000"] = _ddpo("rl_hhi_ddpo_mattergen_t1000", 60, {
-    "model_name": "mattergen_base",
-    "seed": 0,
-    "model_cfg": {"hidden_dim": 256, "num_layers": 6, "time_dim": 256, "timesteps": 1000},
-    "sample_cfg": {"batch_size": 128, "num_batches": 1, "num_atoms_distribution": "mp_20",
-                   "max_atoms": 8, "diffusion_guidance_factor": 0.0},
-    "finetune_cfg": {"batch_size": 16, "timesteps": 1000, "lr": 3e-05, "ddpo_epochs": 2},
-    "model_path": "experiments/results/pretrained_mattergen_t1000",
-    "config_overrides": {"sample_clip": 30.0},
-})
+def recipe_from_hparams(path) -> dict:
+    """The recipe of an archived JAX run's resolved config
+    (``experiments/results/<name>/hparams.yaml``): its values without the
+    Hydra ``_target_`` keys (a model's or calculator's class under
+    ``class``, as ``REWARDS`` has it) and without ``results_dir`` (the run's
+    ``--out`` takes its place); each path of ``REPO_PATHS`` that lies in
+    the archive's checkout is taken from its ``experiments/`` on, others
+    are kept as they are."""
+    cfg = _from_targets(read_yaml(path))
+    cfg.pop("results_dir", None)
+    for keys in REPO_PATHS:
+        node = cfg
+        for k in keys[:-1]:
+            node = node.get(k) if isinstance(node, dict) else None
+        value = node.get(keys[-1]) if isinstance(node, dict) else None
+        if isinstance(value, str) and "/experiments/" in value:
+            node[keys[-1]] = "experiments/" + value.split("/experiments/", 1)[1]
+    return cfg
+
+
+ARCHIVE = Path(__file__).resolve().parents[1] / "experiments" / "results"
+# every archived run, under its directory's name
+RECIPES = {p.parent.name: recipe_from_hparams(p) for p in sorted(ARCHIVE.glob("*/hparams.yaml"))}
+# the archive's DDPO run sampled a copy of the DiffCSP checkpoint outside the
+# repository; the in-repository one has its widths
+if "rl_hhi_ddpo" in RECIPES:
+    RECIPES["rl_hhi_ddpo"]["model"]["model_path"] = "experiments/results/pretrained"
+if "rl_hhi_rich5" in RECIPES:
+    RECIPES["rl_hhi_rich5_opt_filter"] = copy.deepcopy(RECIPES["rl_hhi_rich5"])
+    RECIPES["rl_hhi_rich5_opt_filter"]["pipeline"]["sample_cfg"]["filter"] = dict(BASE_FILTER)
 
 _BASE_SAMPLE = {"num_batches": 1, "max_num": 16, "filter": dict(BASE_FILTER)}
 RECIPES["diffcsp_hhi"] = {
@@ -272,38 +206,3 @@ RECIPES["diffcsp_hhi"] = {
     "reward": copy.deepcopy(REWARDS["hhi"]),
     "logger": {"save_dir": "./"},
 }
-
-_HEAT = _ddpo("rl_heat_capacity_t1000", 120, {
-    "model_name": "mattergen_base",
-    "seed": 0,
-    "model_cfg": {"hidden_dim": 256, "num_layers": 6, "time_dim": 256, "timesteps": 1000},
-    "sample_cfg": {"batch_size": 128, "num_batches": 1,
-                   "num_atoms_distribution": "matinvent_corpus", "max_atoms": 8,
-                   "diffusion_guidance_factor": 0.0},
-    "finetune_cfg": {"batch_size": 16, "timesteps": 1000, "lr": 0.0006},
-    "model_path": "experiments/results/pretrained_mattergen_t1000",
-    "config_overrides": {"sample_clip": 30.0},
-})
-_HEAT["pipeline"].pop("finetune_mode")
-_HEAT["pipeline"]["replay_args"]["sample_size"] = 16
-_HEAT["pipeline"]["finetune_cfg"].update(accum_steps=50, sigma=0.02)
-_HEAT["reward"] = copy.deepcopy(REWARDS["heat_capacity"])
-RECIPES["rl_heat_capacity_t1000"] = _HEAT
-
-_COND_SAMPLE = {**_SAMPLE, "invalid_filter": True}
-_COND = _ddpo("rl_cond_ddpo", 40, {
-    "model_name": "mattergen_base",
-    "seed": 0,
-    "model_cfg": {"hidden_dim": 256, "num_layers": 6, "time_dim": 256, "timesteps": 1000},
-    "sample_cfg": {"batch_size": 64, "num_batches": 1,
-                   "num_atoms_distribution": "matinvent_corpus", "max_atoms": 8,
-                   "diffusion_guidance_factor": 0.5,
-                   "properties_to_condition_on": {"density": 4.18}},
-    "finetune_cfg": {"batch_size": 16, "timesteps": 1000, "lr": 3e-05, "ddpo_epochs": 2},
-    "model_path": "experiments/results/pretrained_conditional_v2",
-})
-_COND["sample_cfg"] = dict(_COND_SAMPLE)
-_COND["pipeline"]["sample_cfg"] = dict(_COND_SAMPLE)
-_COND["pipeline"]["finetune_cfg"]["sigma"] = 0.025
-_COND["reward"] = _section(_prop("density", _EMP, 4.18, 0.0, 4.18), threshold=0.875)
-RECIPES["rl_cond_ddpo"] = _COND
