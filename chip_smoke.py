@@ -32,8 +32,9 @@ launch counts set to 0 just before and read just after:
   timesteps, draws made by numpy), its loss and gradients held against the
   same code on the CPU, then one ``FinetuneStep`` epoch timed per chunk;
 * the sampler's validity (phase ``validity``): 512 crystals of the start
-  checkpoint at T=1000 through the kernel, their SMACT, structural and
-  cell-size failure shares held against the JAX package's record in
+  checkpoint at T=1000 through the kernel, through the ported
+  ``validity_curve_r5`` study, their SMACT, structural and cell-size
+  failure shares held against the JAX package's record in
   ``experiments/results/validity_curve_r5.json``;
 * the sample filter's metrics (phase ``opt_filter``): ``OptEval`` with the
   exact disordered matcher on those 512 crystals against the 36,000
@@ -94,7 +95,8 @@ launch counts set to 0 just before and read just after:
   checkpoint, ``reward=hhi`` and ``configs/``'s defaults for one iteration
   (phase ``main``), the same with ``pipeline=baseline`` (phase
   ``baseline``: the agent bit-equal afterwards), and ``gen_eval`` at 1 x 64
-  crystals with the 1024 record's arguments (phase ``gen_eval``); each
+  crystals with the 1024 record's arguments but the 2,000-structure
+  reference set (phase ``gen_eval``); each
   launches the edge kernel as the sampler's plan says (one padded batch:
   12,000 launches per call);
 * pretraining (phase ``pretrain``): one DiffCSP step at
@@ -139,7 +141,18 @@ launch counts set to 0 just before and read just after:
   generations equal to JAX's record and a 1 x 32 generation of the
   ``rl_hhi_rich5`` checkpoint, and one iteration of the archived
   ``rl_gapbulk_mg_divoff`` recipe (two predictors, ``OptFilter``); the
-  MatterGen chains on the ``MG_STEPS`` grid.
+  MatterGen chains on the ``MG_STEPS`` grid;
+* the JAX package's generation-quality studies (phase ``studies``):
+  ``validity_diagnosis_r5`` on the archived 1024 generation equal to JAX's
+  record; ``type_temperature_ab_r5`` at tau 0.5 on
+  ``pretrained_geneval_r4`` and at tau 1 on the absorbing-chain checkpoint
+  ``pretrained_geneval_r5_r5_absorbing``, 32 crystals each on the
+  ``MG_STEPS`` grid (the launches the plan, the kernel against its plain
+  version at their shapes, the absorbing chain's share of type-0 atoms);
+  ``reward_tail_density_r5``'s hhi over ``corpus_r4`` equal to the record,
+  magnetic density and gap-bulk card against CPU on 256 structures each;
+  ``phonon_ceiling_split_r5``'s C_v of Li2N at 6 and 8 Å against JAX's
+  cells.
 
 Kernel times are device times (CUDA graph replay, ``experiments/timing.py``).
 Each phase prints one JSON line (the harnesses print their own records
@@ -182,7 +195,7 @@ from matinvent_tpu_torch.chem.matcher import (
 from matinvent_tpu_torch.chem.proxy_labels import label_structures
 from matinvent_tpu_torch.chem.relax import SoftSphereRelaxer
 from matinvent_tpu_torch.chem.structure import Structure, read_extxyz, save_extxyz
-from matinvent_tpu_torch.chem.validity import cell_size_ok, smact_valid, structure_validity
+from matinvent_tpu_torch.chem.validity import structure_validity
 from matinvent_tpu_torch.csrc.build import build, build_host
 from matinvent_tpu_torch.experiments import (
     conditional_demo,
@@ -190,7 +203,12 @@ from matinvent_tpu_torch.experiments import (
     fused_edge_ab,
     fused_edge_flat,
     post_rl_gen_eval,
+    reward_tail_density_r5,
     rl_demo,
+    study_check,
+    type_temperature_ab_r5,
+    validity_curve_r5,
+    validity_diagnosis_r5,
 )
 from matinvent_tpu_torch.experiments.edge_cycles import EDGE_SHAPES_RUNS, EDGE_SHAPES_SEED
 from matinvent_tpu_torch.experiments.phonon_check import heat_against_jax, phonon_pair, rocksalt
@@ -202,6 +220,7 @@ from matinvent_tpu_torch.experiments.timing import (
     nbytes,
     time_ms,
 )
+from matinvent_tpu_torch.experiments.validity_fix_r5 import measure_validity
 from matinvent_tpu_torch.models.cspnet import CSPNet, sinusoids_embedding
 from matinvent_tpu_torch import gen_eval as entry_gen_eval
 from matinvent_tpu_torch import main as entry_main
@@ -258,10 +277,9 @@ CKPT = ROOT / "experiments/results/rl_hhi_rich5/models/final"
 START = ROOT / "experiments/results/pretrained_geneval_r5_r5_long_s120000_ema"
 HIST = ROOT / "experiments/data/corpus_r5_num_atoms.json"
 RL_METRICS = ROOT / "experiments/results/rl_hhi_rich5/metrics.csv"
-# the JAX package's validity of START: experiments/results/validity_curve_r5.json,
+# the JAX package's validity of START (its row of validity_curve_r5.json),
 # 512 crystals, corpus_r5 histogram, 4 buckets, seed 1
-VALIDITY_RECORD = {"smact_fail": 0.2988, "structural_fail": 0.0234, "cell_fail": 0.0,
-                   "all_ok": 0.6875, "n": 512}
+VALIDITY_RECORD = ROOT / "experiments/results/validity_curve_r5.json"
 VALIDITY_BATCH, VALIDITY_SEED = 512, 1
 # phase opt_filter: the novelty reference and hull, the JAX package's
 # (relaxed) record, and the native-against-plain gate's sizes
@@ -313,6 +331,12 @@ PHONON_CORPUS, PHONON_SUPERCELL = 32, 32
 MAIN_ARGS = ["model=mattergen", f"model.model_path={START}", "reward=hhi", "rl_epoch=1",
              "eval_size=16"]
 GEN_EVAL_BATCH, GEN_EVAL_BATCHES = 64, 1
+# the 2,000-structure reference set and its hull: gen_eval's novelty and
+# stability reference and the post-RL harness's (the 36,000-structure
+# corpus_r5 match took most of both phases' time; the 1024 record's own
+# call keeps corpus_r5)
+REFERENCE = ROOT / "experiments/data/reference.extxyz"
+REFERENCE_ENERGIES = ROOT / "experiments/data/reference_energies.json"
 # pretraining: configs/model/diffcsp.yaml's width on corpus_r5; MatterGen's
 # step at the start checkpoint's h256/L6. Card vs CPU on the same draws,
 # both f32 (TF32 off): the loss and the gradient norm within the net's own
@@ -386,8 +410,23 @@ COND_CKPT = ROOT / "experiments/results/pretrained_conditional_v2"
 HARNESS_COND_BATCH, HARNESS_COND_GAMMAS = 32, (0.0, 1.0)
 POST_RL_RECORD = ROOT / "experiments/results/post_rl_gen_eval_hhi_rich5.json"
 POST_RL_GENERATION = ROOT / "experiments/results/gen_eval_1024_post_hhi_rich5"
-HARNESS_REFERENCE = ROOT / "experiments/data/reference.extxyz"
 HARNESS_RECIPE = "rl_gapbulk_mg_divoff"
+# phase studies: the JAX package's generation-quality studies, cut to the
+# smoke's time. validity_diagnosis on the archived 1024 generation (equal
+# to JAX's record); type_temperature_ab_r5 at tau 0.5 on
+# pretrained_geneval_r4 and the absorbing-chain checkpoint at tau 1 (the
+# chain validity_fix_r5 samples it with), STUDY_BATCH crystals each on the
+# MG_STEPS grid (the launches the plan; the kernel against its plain version
+# at their bucket shapes; the share of atoms that leave the chain as type 0,
+# a MASK that survived); reward_tail_density's hhi over corpus_r4 (equal to
+# the record); magnetic_density and gap_bulk on the first STUDY_TAIL
+# structures of their subsamples, card against CPU within PRED_TOL; C_v of
+# the Li2N design at 6 and 8 Å held against JAX's cells
+# (study_check.phonon_against_jax)
+STUDY_TAU_CKPT = ROOT / "experiments/results/pretrained_geneval_r4"
+STUDY_ABSORBING = ROOT / "experiments/results/pretrained_geneval_r5_r5_absorbing"
+STUDY_BATCH, STUDY_SEED, STUDY_TAIL = 32, 7, 256
+STUDY_PHONON = (("Li2N_antifluorite", 6.0, 80), ("Li2N_antifluorite", 8.0, 160))
 # phase edge_shapes: MatterGen models of random weights (seeded, scaled by
 # EDGE_SHAPES_SCALE as the CPU tests scale theirs, so the chains stay
 # finite), f32, at shapes the kernel's tiled instances do not take, which
@@ -1203,49 +1242,37 @@ def phase_finetune() -> dict:
     return rec
 
 
-def measure_validity(strucs) -> dict:
-    """The failure shares of ``experiments/validity_fix_r5.py:32``: SMACT
-    charge balance, structural sanity and cell size, and all three passed."""
-    c = {"smact_fail": 0, "structural_fail": 0, "cell_fail": 0, "all_ok": 0}
-    for st in strucs:
-        ok_s, ok_g, ok_c = smact_valid(st), structure_validity(st), cell_size_ok(st)
-        c["smact_fail"] += not ok_s
-        c["structural_fail"] += not ok_g
-        c["cell_fail"] += not ok_c
-        c["all_ok"] += ok_s and ok_g and ok_c
-    return {k: v / max(len(strucs), 1) for k, v in c.items()}
-
-
-def phase_validity(model) -> dict:
-    """512 crystals of the start checkpoint through the kernel (corpus_r5
-    histogram, 4 buckets, seed 1); each share within 4 sigma of the
-    difference of two binomial shares of the JAX package's record."""
+def phase_validity() -> dict:
+    """``validity_curve_r5``'s row of the start checkpoint, through the
+    ported study (``experiments/validity_curve_r5.py``'s ``evaluate``): 512
+    crystals through the kernel (corpus_r5 histogram, 4 buckets, seed 1);
+    each share within 4 sigma of the difference of two binomial shares of
+    the JAX package's record (``experiments/results/validity_curve_r5.json``)."""
     t0 = time.perf_counter()
+    record = {r["ckpt"]: r for r in json.loads(VALIDITY_RECORD.read_text())["runs"]}[START.name]
     kw = dict(batch_size=VALIDITY_BATCH, num_batches=1, max_atoms=MAX_ATOMS,
               num_atoms_distribution="corpus_r5", num_atoms_distribution_file=str(HIST),
               size_buckets=BUCKETS, seed=VALIDITY_SEED)
     plan = MatterGenSampler(**kw)
     cuts, caps = plan.bucket_plan(plan._draw_num_atoms(VALIDITY_BATCH))
-    expected = model.planned_launches() * len(caps)
+    expected = load_model(START, device="cpu").planned_launches() * len(caps)
     fused_edge_chain.launches = 0
     torch.cuda.synchronize()
-    s0 = time.perf_counter()
-    _, strucs = MatterGenSampler(**kw).generate(model)
-    sample_seconds = time.perf_counter() - s0
+    entry, strucs = validity_curve_r5.evaluate(MatterGenSampler(**kw), str(START), DEV)
     launches = fused_edge_chain.launches
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
-    shares = measure_validity(strucs)
-    n, four_sigma = VALIDITY_RECORD["n"], {}
+    n, four_sigma = record["n"], {}
+    shares = {k: entry[k] for k in ("smact_fail", "structural_fail", "cell_fail", "all_ok")}
     for k, p in shares.items():
-        ref = VALIDITY_RECORD[k]
+        ref = record[k]
         pooled = (p * len(strucs) + ref * n) / (len(strucs) + n)
         four_sigma[k] = 4 * math.sqrt(pooled * (1 - pooled) * (1 / len(strucs) + 1 / n))
         if abs(p - ref) > four_sigma[k] + 1e-12:
             raise AssertionError(f"{k}: {p} vs the JAX record {ref}, beyond 4 sigma {four_sigma[k]}")
     rec = dict(phase="validity", n=len(strucs), caps=caps, crystals=[len(x) for x in cuts],
-               kernel_launches=launches, sample_seconds=sample_seconds, **shares,
-               jax_record=VALIDITY_RECORD, four_sigma=four_sigma,
+               kernel_launches=launches, sample_seconds=entry["sample_seconds"], **shares,
+               jax_record=record, four_sigma=four_sigma,
                seconds=time.perf_counter() - t0)
     emit(rec)
     return rec, strucs
@@ -2312,8 +2339,8 @@ def phase_baseline() -> dict:
 def phase_gen_eval() -> dict:
     """``python -m matinvent_tpu_torch.gen_eval`` with the 1024 record's
     arguments at ``GEN_EVAL_BATCHES`` x 64 crystals: the start checkpoint,
-    ``corpus_r5`` as the reference, its hull and its atom-count histogram,
-    relaxation on the card, both matcher tiers. ``metrics.json`` has the
+    ``corpus_r5``'s atom-count histogram, relaxation on the card, both
+    matcher tiers, against ``REFERENCE`` and its hull. ``metrics.json`` has the
     record's keys and fractions in [0, 1]; the launches (a warm launch and
     the timed ones) follow the plan; structures per second."""
     t0 = time.perf_counter()
@@ -2321,8 +2348,8 @@ def phase_gen_eval() -> dict:
     try:
         args = ["model=mattergen", f"model.model_path={START}", f"output_dir={out}",
                 f"batch_size={GEN_EVAL_BATCH}", f"num_batches={GEN_EVAL_BATCHES}",
-                f"reference_path={CORPUS}", f"reference_energies={CORPUS_ENERGIES}", "relax=true",
-                f"num_atoms_from={CORPUS}", "structure_matcher=disordered,ordered"]
+                f"reference_path={REFERENCE}", f"reference_energies={REFERENCE_ENERGIES}",
+                "relax=true", f"num_atoms_from={CORPUS}", "structure_matcher=disordered,ordered"]
         metrics, launches, plans, seconds, _ = _drive(lambda: entry_gen_eval.main(args),
                                                         os.getcwd())
         expected = _check_launches("gen_eval", launches, plans, load_model(START, device="cpu"))
@@ -3296,14 +3323,14 @@ def _harness_post_rl(out: Path) -> dict:
     """``post_rl_gen_eval``: the archived post-RL generation scored equal to
     JAX's record, then the harness at 1 x 32 unrelaxed crystals of the
     ``rl_hhi_rich5`` checkpoint on the ``MG_STEPS`` grid against
-    ``HARNESS_REFERENCE`` (the pretrained side, the archived 1024
+    ``REFERENCE`` (the pretrained side, the archived 1024
     generation, equal to JAX's record too); the launches follow the
     plan."""
     record = json.loads(POST_RL_RECORD.read_text())
     post = post_rl_gen_eval.score_extxyz(str(POST_RL_GENERATION / "generated_crystals.extxyz"),
                                          "hhi", str(out / "score"), "post", DEV)
     summary, launches, plans, seconds, _ = _drive(lambda: post_rl_gen_eval.main([
-        f"out={out}", f"corpus={HARNESS_REFERENCE}", "batch_size=32", "num_batches=1",
+        f"out={out}", f"corpus={REFERENCE}", "batch_size=32", "num_batches=1",
         "relax=false", f"model.config_overrides.timesteps={MG_STEPS}"]), os.getcwd())
     if post != record["post_rl"]["reward_stats"] or \
             summary["pretrain"]["reward_stats"] != record["pretrain"]["reward_stats"]:
@@ -3376,6 +3403,79 @@ def phase_harnesses() -> dict:
     return rec
 
 
+def _study_tau(tag: str, ckpt: Path, tau: float, corpus: list) -> dict:
+    """``type_temperature_ab_r5.tau_entry`` as the study samples (4 buckets,
+    seed 7) at ``STUDY_BATCH`` crystals on the ``MG_STEPS`` grid: the
+    launches its plan, the kernel against its plain version at its bucket
+    shapes, the share of type-0 atoms."""
+    overrides = {"timesteps": MG_STEPS}
+    (entry, strucs), launches, plans, seconds, _ = _drive(
+        lambda: type_temperature_ab_r5.tau_entry(str(ckpt), tau, corpus, STUDY_BATCH, STUDY_SEED,
+                                                 DEV, overrides), os.getcwd())
+    model = load_model(ckpt, device="cpu", config_overrides=overrides)
+    expected = _check_launches(f"studies {tag}", launches, plans, model)
+    if entry["n"] != STUDY_BATCH:
+        raise AssertionError(f"studies {tag}: {entry}")
+    c = model.config
+    species = np.concatenate([np.asarray(st.species) for st in strucs])
+    return dict(checkpoint=ckpt.name, d3pm_kind=c.d3pm_kind, entry=entry,
+                type0_share=float(np.mean(species == 0)), kernel_launches=launches,
+                expected_launches=expected, buckets=len(plans),
+                kernel_vs_plain=check_path_kernel(plans, c.hidden_dim, c.num_freqs),
+                seconds_run=seconds)
+
+
+def phase_studies() -> dict:
+    """The JAX package's generation-quality studies as their ported
+    modules run them (``matinvent_tpu_torch.experiments``), cut to the
+    smoke's time (the constants above), each part's launches read around
+    it."""
+    t0 = time.perf_counter()
+    results = ROOT / "experiments/results"
+    parts = {}
+    t = time.perf_counter()
+    diag = validity_diagnosis_r5.diagnose(read_extxyz(validity_diagnosis_r5.GEN), "generated_r4")
+    if diag != json.loads((results / "validity_diagnosis_r5.json").read_text())["generated_r4"]:
+        raise AssertionError(f"studies validity_diagnosis: {diag} is not JAX's record")
+    parts["validity_diagnosis"] = dict(equal_record=True, seconds=time.perf_counter() - t)
+    corpus = read_extxyz(reward_tail_density_r5.CORPUS)
+    for tag, ckpt, tau in (("tau_0.5", STUDY_TAU_CKPT, 0.5), ("absorbing", STUDY_ABSORBING, 1.0)):
+        t = time.perf_counter()
+        parts[tag] = dict(_study_tau(tag, ckpt, tau, corpus), seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    record = json.loads((results / "reward_tail_density_r5.json").read_text())
+    hhi = reward_tail_density_r5.score("hhi", corpus, DEV)
+    if {k: v for k, v in hhi.items() if k != "seconds"} != \
+            {k: v for k, v in record["hhi"].items() if k != "seconds"}:
+        raise AssertionError(f"studies hhi: {hhi}, JAX's record {record['hhi']}")
+    tail = dict(hhi_equal_record=True)
+    idx = reward_tail_density_r5.subsample_indices(len(corpus))
+    for name in ("magnetic_density", "gap_bulk"):
+        strucs = [corpus[i] for i in idx[name][:STUDY_TAIL]]
+        card_r, card_f, _ = reward_tail_density_r5.rewards_of(name, strucs, DEV)
+        cpu_r, cpu_f, _ = reward_tail_density_r5.rewards_of(name, strucs, "cpu")
+        err = float(np.abs(card_r - cpu_r).max())
+        if not np.array_equal(card_f, cpu_f) or err > PRED_TOL:
+            raise AssertionError(f"studies {name}: card vs CPU {err}, failed "
+                                 f"{int(card_f.sum())} / {int(cpu_f.sum())}")
+        tail[name] = dict(n=len(strucs), max_abs_err=err, tol=PRED_TOL, failed=int(card_f.sum()))
+    parts["reward_tail"] = dict(tail, seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    cells = []
+    split = json.loads((results / "phonon_ceiling_split_r5.json").read_text())
+    for name, ml, cap in STUDY_PHONON:
+        row = study_check.phonon_against_jax(name, ml, cap, DEV)
+        record_cv = split[name]["supercell_convergence"][f"min_length_{ml:g}"]["cv"]
+        row.update(record=record_cv, record_gap=abs(row["cv"] - record_cv))
+        if row["kind"] == "differs" or row["supercell_atoms"] != row["jax_supercell_atoms"]:
+            raise AssertionError(f"studies phonon: {row}")
+        cells.append(row)
+    parts["phonon"] = dict(cells=cells, seconds=time.perf_counter() - t)
+    rec = dict(phase="studies", **parts, seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
+
+
 def instances(build_rec: dict, library: str, prefix: str) -> list[dict]:
     """The build's instances of ``library`` whose name starts with
     ``prefix``: registers, spills and shared memory of each."""
@@ -3405,10 +3505,8 @@ def main() -> int:
     del model
     edge = phase_edge_shapes()
     phase_finetune()
-    model = load_model(START, device=DEV)
-    start_sd = {k: v.cpu().clone() for k, v in model.state_dict().items()}
-    valid, strucs = phase_validity(model)
-    del model
+    start_sd = {k: v.clone() for k, v in load_model(START, device="cpu").state_dict().items()}
+    valid, strucs = phase_validity()
     phase_opt_filter(strucs)
     rl = phase_rl(start_sd)
     rl_async = phase_rl_async()
@@ -3431,6 +3529,7 @@ def main() -> int:
     distilled = phase_distill()
     phase_reward_ceiling()
     harnesses = phase_harnesses()
+    studies = phase_studies()
     emit(dict(phase="done", seconds=time.perf_counter() - t0))
     b = kern["buckets"]
     wide = edge["runs"]["h384"]["wide_buckets_timing"]
@@ -3491,6 +3590,9 @@ def main() -> int:
             conditional=[r["kernel_launches"] for r in harnesses["conditional"]["rows"]],
             post_rl=harnesses["post_rl"]["kernel_launches"],
             recipe=harnesses["recipe"]["iteration"]["kernel_launches"]),
+        # the studies (phase studies): type_temperature_ab_r5 at tau 0.5 and
+        # the absorbing chain, each its plan
+        launches_studies={k: studies[k]["kernel_launches"] for k in ("tau_0.5", "absorbing")},
         max_abs_err=kern["max_abs_err_f32"],
         max_abs_err_bf16=kern["max_abs_err_bf16"],
         # one layer-eval of the batch: the sum over the bucket shapes, f32

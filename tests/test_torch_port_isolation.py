@@ -283,3 +283,76 @@ def test_tool_modules_import_alone_and_refuse_to_start_without_a_card():
         assert proc.returncode != 0, name
         assert "CUDA is not available" in proc.stderr, proc.stderr
         assert not (ROOT / "never_written").exists()
+
+
+# the generation-quality studies and their card check; the diagnosis is
+# host only and needs no card
+STUDY_MODULES = [
+    "matinvent_tpu_torch.experiments.validity_fix_r5",
+    "matinvent_tpu_torch.experiments.validity_curve_r5",
+    "matinvent_tpu_torch.experiments.type_temperature_ab_r5",
+    "matinvent_tpu_torch.experiments.validity_diagnosis_r5",
+    "matinvent_tpu_torch.experiments.reward_tail_density_r5",
+    "matinvent_tpu_torch.experiments.phonon_ceiling_split_r5",
+    "matinvent_tpu_torch.experiments.study_check",
+    "matinvent_tpu_torch.tools.check_env",
+]
+CARD_STUDIES = {
+    "validity_fix_r5": ["tag=never", "steps=0", "out=never_written"],
+    "validity_curve_r5": ["ckpts=pretrained_geneval_r4", "corpus=experiments/data/reference.extxyz",
+                          "out=never_written"],
+    "type_temperature_ab_r5": ["taus=1.0", "corpus=experiments/data/reference.extxyz",
+                               "out=never_written"],
+    "reward_tail_density_r5": ["rewards=magnetic_density", "out=never_written"],
+    "phonon_ceiling_split_r5": ["out=never_written"],
+    "study_check": ["out=never_written", "results=never_written", "parts=validity_diagnosis"],
+}
+
+
+def test_study_modules_import_alone_and_refuse_to_start_without_a_card():
+    for name in STUDY_MODULES:
+        path = PACKAGE / Path(*name.split(".")[1:]).with_suffix(".py")
+        assert _imports(path) <= ALLOWED, name
+    proc = _run(textwrap.dedent(
+        f"""
+        import importlib
+        for name in {STUDY_MODULES!r}:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("imported")
+        """
+    ))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "imported" in proc.stdout
+    for short, args in CARD_STUDIES.items():
+        proc = _run(textwrap.dedent(
+            f"""
+            import runpy, torch
+            torch.cuda.is_available = lambda: False
+            sys.argv = [{short!r}] + {args!r}
+            runpy.run_module("matinvent_tpu_torch.experiments.{short}", run_name="__main__")
+            """
+        ))
+        assert proc.returncode != 0, short
+        assert "CUDA is not available" in proc.stderr, proc.stderr
+    assert not (ROOT / "never_written").exists()
+
+
+def test_launch_scripts_run_the_port_only():
+    """``matinvent_tpu_torch/scripts/`` starts the port's entry points
+    (``python -m matinvent_tpu_torch.<module>``), never the JAX package's
+    ``main.py`` / ``gen_eval.py`` or ``matinvent_tpu``."""
+    scripts = sorted((PACKAGE / "scripts").glob("*.sh"))
+    assert [p.name for p in scripts] == ["gen_eval.sh", "run_rl.sh"]
+    for path in scripts:
+        text = path.read_text()
+        runs = [line.split() for line in text.splitlines()
+                if line.lstrip().startswith(("python", "nohup python"))]
+        assert runs, path.name
+        for words in runs:
+            at = words.index("python")
+            assert words[at + 1] == "-m" and words[at + 2].startswith("matinvent_tpu_torch."), words
+        assert "main.py" not in text and "gen_eval.py" not in text
+        assert not any(w.startswith("matinvent_tpu.") or w == "matinvent_tpu"
+                       for w in text.replace("/", " ").split())

@@ -11,6 +11,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from matinvent_tpu.models.mattergen.diffusion import (
@@ -38,23 +39,27 @@ torch.set_num_threads(1)
 BASE = dict(hidden_dim=32, num_layers=2, time_dim=16, timesteps=8, beta_max=1.0)
 
 
-def _models():
-    jd = JaxDiffusion(JaxConfig(**BASE))
+def _models(**extra):
+    cfg = dict(BASE, **extra)
+    jd = JaxDiffusion(JaxConfig(**cfg))
     params = jd.init_params(jax.random.PRNGKey(0), batch_size=2, max_atoms=6)
     params["params"]["cell_out"]["kernel"] = params["params"]["cell_out"]["kernel"] * 0.01
-    model = MatterGenDiffusion(MatterGenConfig(**BASE), device="cpu")
+    model = MatterGenDiffusion(MatterGenConfig(**cfg), device="cpu")
     sd = params_from_jax(jax.tree.map(np.asarray, params))
     model.load_state_dict({k: torch.tensor(v) for k, v in sd.items()}, strict=True)
     return jd, params, model
 
 
-def _jax_draws(key, B, A, N, V, n_corrector):
-    """The draws ``MatterGenDiffusion.sample`` makes from ``key``."""
+def _jax_draws(key, B, A, N, d3pm, n_corrector):
+    """The draws ``MatterGenDiffusion.sample`` makes from ``key``; the
+    prior classes are ``d3pm.prior_sample``'s (uniform: the integer draw,
+    absorbing: all MASK)."""
+    V = d3pm.vocab
     k_cell, k_pos, k_type, k_scan = jax.random.split(key, 4)
     prior = (
         np.array(jax.random.normal(k_cell, (B, 3, 3))),
         np.array(jax.random.uniform(k_pos, (B, A, 3))),
-        np.array(jax.random.randint(k_type, (B, A), 0, V)),
+        np.array(d3pm.prior_sample(k_type, (B, A))),
     )
     steps = {"cell": [], "pos": [], "gumbel": [], "corr": []}
     for i in range(N):
@@ -72,13 +77,18 @@ def _jax_draws(key, B, A, N, V, n_corrector):
                                for k in ("cell", "pos", "gumbel", "corr")))
 
 
-def test_sampling_with_jax_draws_matches_jax():
-    jd, params, model = _models()
+@pytest.mark.parametrize("extra", [
+    dict(type_temperature=1.0, d3pm_kind="uniform"),
+    dict(type_temperature=0.5, d3pm_kind="uniform"),
+    dict(type_temperature=1.0, d3pm_kind="absorbing"),
+], ids=["tau1-uniform", "tau0.5-uniform", "tau1-absorbing"])
+def test_sampling_with_jax_draws_matches_jax(extra):
+    jd, params, model = _models(**extra)
     B, A = 3, 6
     na = np.array([2, 6, 4], np.int32)
     key = jax.random.PRNGKey(7)
     ref = jd.sample(params, key, jnp.asarray(na), max_atoms=A)[0]
-    noise = _jax_draws(key, B, A, BASE["timesteps"], jd.d3pm.vocab, 1)
+    noise = _jax_draws(key, B, A, BASE["timesteps"], jd.d3pm, 1)
     out = model.sample(noise, torch.from_numpy(na), max_atoms=A, fused_edge=True)
     np.testing.assert_allclose(out.frac_coords.numpy(), np.asarray(ref.frac_coords), atol=1e-4, rtol=0)
     np.testing.assert_allclose(out.lattice.numpy(), np.asarray(ref.lattice), atol=1e-4, rtol=0)
